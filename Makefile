@@ -1,5 +1,5 @@
 # Convenience targets mirroring the reference's Makefile contract
-# (all/cpu/test/clean) for the TPU framework.
+# (all/cpu/test/clean).
 
 PY ?= python
 
@@ -28,11 +28,8 @@ test:
 bench:
 	$(PY) bench.py
 
-tune:
-	$(PY) tools/tune_kernels.py
-
 dryrun:
-	JAX_PLATFORM_NAME=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+	JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
 		$(PY) -c "import __graft_entry__ as g; g.dryrun_multichip(8)"
 
 clean:

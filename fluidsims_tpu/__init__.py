@@ -1,16 +1,16 @@
-"""fluidsims_tpu — a TPU-native simulation engine (JAX / XLA / Pallas / pjit).
+"""fluidsims_tpu — a simulation engine in JAX, compiled by XLA for the GPU.
 
 One engine, many solvers: re-creates the capabilities of the reference
 `fluid-sims` solver collection (20 standalone CUDA/C programs) as a single
-TPU-first framework.  Grid solvers are fused stencil dataflow (XLA-fused jnp
-or Pallas kernels), particle solvers use sort-based scatter in place of CUDA
-atomics, and large domains shard across chips with ICI halo exchange
-(`jax.shard_map` + `lax.ppermute`).
+framework.  Grid solvers are fused stencil dataflow (XLA-fused jnp),
+particle solvers offer a sort-based cell-dense layout beside the
+reference's atomic scatter, and large domains shard across devices with
+halo exchange (`jax.shard_map` + `lax.ppermute`).
 
 Layer map (mirrors SURVEY.md §1):
   L1 config/geometry/BC   -> fluidsims_tpu.core.config, fluidsims_tpu.ops.sdf
   L2 state/memory         -> functional pytree state (no ping-pong needed)
-  L3 numerics/kernels     -> fluidsims_tpu.ops, fluidsims_tpu.kernels
+  L3 numerics             -> fluidsims_tpu.ops
   L4 driver/stepping      -> fluidsims_tpu.core.stepper, core.clock, core.bench
   L5 render/export        -> fluidsims_tpu.render, fluidsims_tpu.io
 """

@@ -2,7 +2,7 @@
 
 Replaces the reference's per-program getopt mains with a single CLI that
 keeps the headless benchmark contract first-class (SURVEY.md §5: the
-interactive ncurses/raylib loops don't exist on TPU hosts; --render gives
+interactive ncurses/raylib loops don't exist on headless hosts; --render gives
 terminal frames, --steps/--stride the bench semantics, and the FPS/MLUPS
 reports mirror js_cuda.cu:401-441 / tau_lbm.cu:291-294).
 
@@ -235,7 +235,7 @@ def cmd_gray_scott(args):
     cfg = gs.GrayScottConfig(
         nx=nx, ny=ny, dx=args.dx, dt=args.dt, Du=args.Du,
         Dv=args.Dv, feed=args.F, kill=args.k, seed=args.seed,
-        dtype=args.dtype, engine=args.engine, block_k=args.block_k,
+        dtype=args.dtype,
     )
     s = gs.init(cfg)
     run = jax.jit(lambda st, n: gs.run(cfg, st, n), static_argnums=1)
@@ -291,7 +291,6 @@ def cmd_burgers(args):
         cfl=args.CFL, tau0=args.tau0, t0=args.t0,
         dtau=args.dtau, muscl=args.muscl, visc_substeps=args.visc_substeps,
         colehopf=args.colehopf, ck=args.ck, ca=args.ca, dtype=args.dtype,
-        engine=args.engine, block_k=args.block_k,
     )
     s = bg.init(cfg)
     run = jax.jit(lambda st, n: bg.run(cfg, st, n), static_argnums=1)
@@ -359,7 +358,6 @@ def cmd_shallow_water(args):
         offx=args.offx, offy=args.offy, asym=args.asym, swirl=args.swirl,
         swirl_rc=args.rc, tau0=args.tau0, t0=args.t0,
         dtau=args.dtau, dtype=args.dtype,
-        engine=args.engine, block_k=args.block_k,
     )
     s = sw.init(cfg)
     run = jax.jit(lambda st, n: sw.run(cfg, st, n), static_argnums=1)
@@ -407,7 +405,7 @@ def cmd_lbm(args):
     cfg = lbm.LBMConfig(
         nx=args.nx, ny=args.ny, tau=args.tau, drive=args.drive,
         obstacle=not args.no_obstacle, obstacle_radius=args.radius,
-        dtype=args.dtype, engine=args.engine, block_k=args.block_k,
+        dtype=args.dtype,
     )
     s = lbm.init(cfg)
     run = jax.jit(lambda st, n: lbm.run(cfg, st, n), static_argnums=1)
@@ -486,25 +484,7 @@ def cmd_hypersonic2d(args):
         inflow_mach=args.mach, dtype=args.dtype,
     )
     s = h2.init(cfg)
-    step = None
-    if args.impl in ("pallas", "auto"):
-        try:
-            from .core.stepper import scan_steps
-            from .kernels import hypersonic2d_pallas as hp
-
-            band = 16 if cfg.ny % 16 == 0 else 8
-            step_p = hp.make_step_pallas(cfg, band=band)
-            step = jax.jit(lambda st, n: scan_steps(step_p, st, n),
-                           static_argnums=1)
-            jax.block_until_ready(step(s, 1).U.rho)
-        except Exception as e:
-            if args.impl == "pallas":
-                raise
-            print(f"# pallas unavailable ({str(e)[:120]}); using XLA",
-                  file=sys.stderr)
-            step = None
-    run = step if step is not None else jax.jit(
-        lambda st, n: h2.run(cfg, st, n), static_argnums=1)
+    run = jax.jit(lambda st, n: h2.run(cfg, st, n), static_argnums=1)
 
     if args.serve:
         # Live browser stream of the 2-D field (VERDICT r4 missing #3 —
@@ -608,24 +588,7 @@ def cmd_hypersonic3d(args):
 
     cfg = h3.default_config(args.n, dtype=args.dtype, outflow=args.outflow)
     s = h3.init(cfg)
-    run = None
-    if args.impl in ("pallas", "auto"):
-        try:
-            from .core.stepper import scan_steps
-            from .kernels import hypersonic3d_pallas as hp3
-
-            step_p = hp3.make_step_pallas(cfg)
-            run = jax.jit(lambda st, n: scan_steps(step_p, st, n),
-                          static_argnums=1)
-            jax.block_until_ready(run(s, 1).xi)
-        except Exception as e:
-            if args.impl == "pallas":
-                raise
-            print(f"# pallas unavailable ({str(e)[:120]}); using XLA",
-                  file=sys.stderr)
-            run = None
-    if run is None:
-        run = jax.jit(lambda st, n: h3.run(cfg, st, n), static_argnums=1)
+    run = jax.jit(lambda st, n: h3.run(cfg, st, n), static_argnums=1)
 
     box = {"view": args.view, "log": False, "zslice": cfg.nz // 2,
            "a_gain": 1.0}
@@ -758,8 +721,7 @@ def cmd_mhd(args):
     from .solvers import mhd
 
     cfg = mhd.MHDConfig(nx=args.nx, ny=args.ny, problem=args.case,
-                        stable_hll=args.stable_hll, dtype=args.dtype,
-                        engine=args.engine, block_k=args.block_k)
+                        stable_hll=args.stable_hll, dtype=args.dtype)
     s = mhd.init(cfg)
     run = jax.jit(lambda st, n: mhd.run(cfg, st, n), static_argnums=1)
 
@@ -825,9 +787,7 @@ def cmd_stam2d(args):
     from .render.terminal import render_ramp
     from .solvers import stam2d
 
-    cfg = stam2d.Stam2DConfig(n=args.n, dtype=args.dtype,
-                              engine=args.engine,
-                              advect_band=args.advect_band)
+    cfg = stam2d.Stam2DConfig(n=args.n, dtype=args.dtype)
     s = stam2d.init(cfg)
     run = jax.jit(lambda st, n: stam2d.run(cfg, st, n), static_argnums=1)
 
@@ -838,21 +798,13 @@ def cmd_stam2d(args):
 
     if args.interactive:
         _basic_interactive(
-            args, s, lambda: run, frame, lambda: stam2d.init(cfg),
-            status_fn=lambda ctx: f"engine={stam2d.resolve_engine(cfg)}")
+            args, s, lambda: run, frame, lambda: stam2d.init(cfg))
         return
 
     out = _run_headless(run, s, args.steps, "stam2d", cells=cfg.n * cfg.n,
                         args=args, frame_fn=frame,
                         rgb_fn=lambda st: jet(
                             np.clip(np.asarray(st.d), 0, 1)))
-    if stam2d.resolve_engine(cfg) == "pallas":
-        over = int(out.ovf)   # cumulative across ALL frames (state.ovf)
-        if over:
-            print(f"WARNING: {over} cell-advections exceeded the "
-                  f"advect_band={cfg.advect_band} backtrace band over the "
-                  "run (clamped); raise --advect-band or use --engine xla "
-                  "for the exact gather path", file=sys.stderr)
     if not args.stride:
         _maybe_render(args, frame(out))
 
@@ -871,7 +823,7 @@ def cmd_stam3d(args):
                               seed_sigma=args.sigma,
                               jacobi_iters=args.jacobi, seed=args.seed,
                               dtype=args.dtype,
-                              advect_k=args.advect_k, engine=args.engine)
+                              advect_k=args.advect_k)
     s = stam3d.init(cfg)
     run = jax.jit(lambda st, n: stam3d.run(cfg, st, n), static_argnums=1)
 
@@ -893,9 +845,7 @@ def cmd_stam3d(args):
     if args.interactive:
         _basic_interactive(
             args, s, lambda: run, frame, lambda: stam3d.init(cfg),
-            status_fn=lambda ctx: (
-                f"engine={stam3d.resolve_engine(cfg)} "
-                f"advect_k={cfg.advect_k}"))
+            status_fn=lambda ctx: f"advect_k={cfg.advect_k}")
         return
 
     out = _run_headless(run, s, args.steps, "stam3d", cells=cfg.n**3,
@@ -1027,8 +977,6 @@ def cmd_flip(args):
 
     if args.interactive:
         # flip/apic blend nudges ride as traced scalars: no recompile
-        # (solvers/flip_apic.step routes them through the cell-dense
-        # engine, bitwise-equal to the Pallas one)
         box = {"cfg": cfg, "flip": cfg.flip, "apic": cfg.apic}
 
         def make_runner():
@@ -1397,12 +1345,6 @@ def build_parser():
     p.add_argument("--k", type=float, default=0.06)
     p.add_argument("--seed", type=int, default=1337)
     p.add_argument("--halfblocks", action="store_true")
-    p.add_argument("--engine", default="auto",
-                   choices=["auto", "xla", "pallas"],
-                   help="pallas = K-step temporally-blocked VMEM kernel "
-                        "(~2x on TPU at 2048^2)")
-    p.add_argument("--block-k", type=int, default=16,
-                   help="fused steps per HBM round trip (pallas engine)")
     _common(p, 2000)
     p.set_defaults(fn=cmd_gray_scott)
 
@@ -1431,11 +1373,6 @@ def build_parser():
     p.add_argument("--colehopf", action="store_true")
     p.add_argument("--ck", type=int, default=4)
     p.add_argument("--ca", type=float, default=0.5)
-    p.add_argument("--engine", default="auto",
-                   choices=["auto", "xla", "pallas"],
-                   help="pallas = whole-solve VMEM-resident K-step kernel")
-    p.add_argument("--block-k", type=int, default=16,
-                   help="fused steps per kernel launch (pallas engine)")
     _common(p, 2000)
     p.set_defaults(fn=cmd_burgers)
 
@@ -1460,11 +1397,6 @@ def build_parser():
     p.add_argument("--tau0", type=float, default=0.0)
     p.add_argument("--t0", type=float, default=1.0)
     p.add_argument("--dtau", type=float, default=1.0)
-    p.add_argument("--engine", default="auto",
-                   choices=["auto", "xla", "pallas"],
-                   help="pallas = whole-solve VMEM-resident K-step kernel")
-    p.add_argument("--block-k", type=int, default=16,
-                   help="fused steps per kernel launch (pallas engine)")
     _common(p, 2000)
     p.set_defaults(fn=cmd_shallow_water)
 
@@ -1475,12 +1407,6 @@ def build_parser():
     p.add_argument("--drive", type=float, default=1e-6)
     p.add_argument("--radius", type=float, default=32.0)
     p.add_argument("--no-obstacle", action="store_true")
-    p.add_argument("--engine", default="auto",
-                   choices=["auto", "xla", "pallas"],
-                   help="pallas = K-step temporally-blocked VMEM kernel "
-                        "(the single-step update is HBM-bound)")
-    p.add_argument("--block-k", type=int, default=8,
-                   help="fused steps per HBM round trip (pallas engine)")
     _common(p, 1000)
     p.set_defaults(fn=cmd_lbm)
 
@@ -1498,10 +1424,6 @@ def build_parser():
     p.add_argument("--colors", choices=("mono", "256"), default="mono",
                    help="256 = dynamic-palette ANSI renderer "
                         "(js_cuda3d.cu:471-517)")
-    p.add_argument("--impl", choices=("auto", "pallas", "xla"),
-                   default="auto",
-                   help="step implementation: fused Pallas TPU kernel, "
-                        "XLA dataflow, or auto (pallas w/ XLA fallback)")
     p.add_argument("--serve", action="store_true",
                    help="stream the view field live to the web viewer "
                         "while the solver runs (prints the URL)")
@@ -1524,10 +1446,6 @@ def build_parser():
     p.add_argument("--view", default="schlieren")
     p.add_argument("--outflow", choices=("transmissive", "characteristic"),
                    default="transmissive")
-    p.add_argument("--impl", choices=("auto", "pallas", "xla"),
-                   default="xla",
-                   help="step implementation (pallas: fused z-banded "
-                        "kernel, bit-identical, ~1.1x on TPU)")
     _common(p, 100)
     p.set_defaults(fn=cmd_hypersonic3d)
 
@@ -1550,28 +1468,11 @@ def build_parser():
                    choices=["briowu", "orszag-tang"])
     p.add_argument("--view", type=int, default=0)
     p.add_argument("--stable-hll", action="store_true")
-    p.add_argument("--engine", default="auto",
-                   choices=("auto", "xla", "pallas"),
-                   help="pallas = whole-solve VMEM-resident K-step kernel")
-    p.add_argument("--block-k", type=int, default=16, dest="block_k",
-                   help="fused steps per kernel launch (pallas engine)")
     _common(p, 200)
     p.set_defaults(fn=cmd_mhd)
 
     p = sub.add_parser("stam2d", help="stable fluids log-eta grid (js_cuda)")
     p.add_argument("--n", type=int, default=512)
-    p.add_argument("--engine", choices=("auto", "hybrid", "pallas", "xla"),
-                   default="auto",
-                   help="auto = hybrid on TPU: banded VMEM advection "
-                        "kernel with an exact-gather fallback on frames "
-                        "whose backtrace would overflow the band (zero "
-                        "clamped cells); pallas = pure banded (clamps + "
-                        "warns); xla = exact gathers everywhere")
-    p.add_argument("--advect-band", type=int, default=16,
-                   dest="advect_band",
-                   help="row backtrace band in cells; the pallas engine "
-                        "clamps farther backtraces (warned), the hybrid "
-                        "engine falls back to the exact gather")
     _common(p, 100)
     p.set_defaults(fn=cmd_stam2d)
 
@@ -1598,13 +1499,10 @@ def build_parser():
     p.add_argument("--levels", type=int, default=256)
     p.add_argument("--cols", type=int, default=100)
     p.add_argument("--rows", type=int, default=40)
-    p.add_argument("--advect-k", type=int, default=2,
-                   help="0 = exact gather advection (slow on TPU); K >= 1 "
+    p.add_argument("--advect-k", type=int, default=0,
+                   help="0 = exact gather advection (default); K >= 1 "
                         "= dense-shift advection, exact for backtraces <= "
                         "K cells (capped cells are reported)")
-    p.add_argument("--engine", choices=("auto", "pallas", "xla"),
-                   default="auto",
-                   help="auto = fused Pallas kernels on TPU, XLA elsewhere")
     p.add_argument("--colors", choices=("mono", "256"), default="mono",
                    help="256 = dynamic-palette ANSI renderer "
                         "(js_cuda3d.cu:471-517)")
@@ -1631,10 +1529,10 @@ def build_parser():
     p.add_argument("--no-rain", action="store_true")
     p.add_argument("--cols", type=int, default=100)
     p.add_argument("--rows", type=int, default=40)
-    p.add_argument("--engine", choices=("auto", "pallas", "xla", "exact"),
-                   default="auto",
-                   help="auto = fused Pallas kernels on TPU, XLA elsewhere; "
-                        "exact = O(n^2) all-pairs, correct at any occupancy")
+    p.add_argument("--engine", choices=("xla", "exact"), default="xla",
+                   help="xla = cell-dense neighbor lists (capped at "
+                        "--bin-capacity per cell); exact = O(n^2) "
+                        "all-pairs, correct at any occupancy")
     p.add_argument("--bin-capacity", type=int, default=0, dest="bin_capacity",
                    help="cell-dense slots per cell (0 = auto); particles "
                         "beyond it are dropped and reported")
@@ -1650,7 +1548,8 @@ def build_parser():
     p.add_argument("--flip", type=float, default=0.97)
     p.add_argument("--apic", type=float, default=0.85)
     p.add_argument("--engine", choices=("dense", "scatter"), default="dense",
-                   help="transfer engine: cell-dense (fast) or scatter")
+                   help="transfer engine: cell-dense (capped per cell) or "
+                        "scatter (the reference's atomic P2G, exact)")
     p.add_argument("--bin-capacity", type=int, default=0, dest="bin_capacity",
                    help="cell-dense slots per cell (0 = auto); particles "
                         "beyond it are dropped and reported")
@@ -1669,7 +1568,9 @@ def build_parser():
     p.add_argument("--cols", type=int, default=100)
     p.add_argument("--rows", type=int, default=40)
     p.add_argument("--engine", choices=("dense", "scatter"),
-                   default="dense")
+                   default="scatter",
+                   help="transfer engine: scatter (the reference's atomic "
+                        "P2G, exact) or cell-dense (capped per cell)")
     p.add_argument("--bin-capacity", type=int, default=0, dest="bin_capacity",
                    help="cell-dense slots per cell (0 = auto); particles "
                         "beyond it are dropped and reported")
@@ -1711,13 +1612,13 @@ def build_parser():
     p.add_argument("--grid-res", type=int, default=32)
     p.add_argument("--native", action="store_true",
                    help="use the native threaded Barnes-Hut engine "
-                        "(native/nbody_bh.c) instead of the TPU path")
+                        "(native/nbody_bh.c) instead of the JAX path")
     p.add_argument("--threads", type=int, default=None,
                    help="worker threads for --native (default: CPU count)")
     p.add_argument("--theta", type=float, default=0.75,
                    help="BH multipole acceptance for --native (0 = exact)")
     p.add_argument("--engine", choices=("exact", "grid"), default="exact",
-                   help="TPU repulsion: exact all-pairs (default) or "
+                   help="repulsion: exact all-pairs (default) or "
                         "grid-monopole approximation")
     p.add_argument("--scheme", default="mint",
                    choices=("mint", "index", "log", "radius", "xor"),
@@ -1733,20 +1634,11 @@ def build_parser():
 
 
 def main(argv=None):
-    import os
-
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_fst_cache")
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_fst_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    except Exception:
-        pass
-    from .core.platform import honor_env_platforms
+    from .core.platform import enable_compile_cache
 
-    honor_env_platforms(jax)
-
+    enable_compile_cache(jax)
     args = build_parser().parse_args(argv)
     args.fn(args)
     return 0

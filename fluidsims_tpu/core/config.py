@@ -4,7 +4,7 @@ The reference repo gives each program its own `struct Params`/`SimConfig`
 populated by getopt and uploaded to CUDA constant memory (e.g.
 tau_hypersonic_cuda.cu:37-50, tau_gray_scott.cu:43-61).  Here every solver
 gets a frozen dataclass; configs are *static* w.r.t. jit (hashable, passed as
-Python objects so XLA specializes on them, the TPU analog of `__constant__`
+Python objects so XLA specializes on them, the analog of `__constant__`
 memory), with two-stage validation (parse-time type checks + physics checks)
 mirroring tau_hypersonic_cuda.cu:1482-1639.
 """

@@ -6,7 +6,7 @@ steps_per_frame batches — pause/reset/view-mode cycling
 dependent state (tau_sph.cu:622-657: h / c0 / dTau rebuilding the cell
 grid), obstacle toggles re-initializing the field (tau_lbm.cu:281-286).
 
-TPU host analog: a raw-mode stdin poll plays the role of the
+Headless-host analog: a raw-mode stdin poll plays the role of the
 ncurses/raylib event loop over streamed terminal frames.  Parameter
 nudges call `ctx.invalidate()`, which rebuilds the jitted runner from the
 (updated) config — the analog of the reference re-deriving cfg-dependent

@@ -63,7 +63,7 @@ class Throughput:
 
 @contextlib.contextmanager
 def device_timer(result_holder: dict, key: str = "wall_s"):
-    """Bracket a region with full device sync on both sides — the TPU analog
+    """Bracket a region with full device sync on both sides — the analog
     of the reference's cudaEvent pairs (js_cuda.cu:404-437)."""
     (jax.device_put(0.0) + 0).block_until_ready()
     t0 = time.perf_counter()

@@ -123,9 +123,10 @@ def gamma_thresholds(gamma: float = 0.65, levels: int = 256) -> np.ndarray:
     f64 and rounded once to f32.  index(v) = #{k : v_norm >= tau_k}
     reproduces trunc(v_norm**gamma * 255) up to one index at
     representation boundaries, with NO pow or divide in the per-voxel
-    path — which is what makes the host (NumPy) and device (XLA TPU)
-    quantizers byte-identical (TPU f32 division is reciprocal-based and
-    pow is transcendental; sub/mul/compare are exactly rounded on both)."""
+    path — which is what makes the host (NumPy) and device (XLA)
+    quantizers byte-identical (device f32 division may be reciprocal-based
+    and pow is transcendental; sub/mul/compare are exactly rounded on
+    both)."""
     k = np.arange(1, levels, dtype=np.float64)
     return ((k / (levels - 1)) ** (1.0 / gamma)).astype(np.float32)
 

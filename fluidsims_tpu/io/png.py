@@ -2,7 +2,7 @@
 
 The reference's raylib demos upload the colormapped field as an RGBA
 texture every frame (tau_hypersonic_cuda.cu:1892-1933, tau_mhd.c:177-202);
-headless TPU hosts have no window, so the equivalent export surface is a
+headless hosts have no window, so the equivalent export surface is a
 PNG file per frame (CLI --png / --png-stride), built from the same view
 -> normalize -> colormap pipeline.  Pure stdlib (zlib + struct).
 """

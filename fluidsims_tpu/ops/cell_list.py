@@ -2,8 +2,8 @@
 
 The reference builds per-cell linked lists with atomicExch
 (tau_sph.cu:159-176) and traverses them with data-dependent pointer chasing
-(:193-266) — neither scatters nor linked lists map to the TPU.  The
-TPU-native replacement:
+(:193-266).  This sort-based replacement needs neither atomics nor
+pointer chasing:
 
   1. cell id per particle (clamped binning, tau_sph.cu:141-157),
   2. argsort particles by cell id (XLA sort),

@@ -1,20 +1,12 @@
 """Sort-free mask→index compaction.
 
-`lax.top_k` over n² keys lowers to a full variadic sort on TPU
-(~222 us for 512² i32 on v5e — measured in the stam2d hybrid repair),
-and `jnp.flatnonzero(size=...)`'s cumsum lowering is no better in
-context.  This module compacts the indices of set mask cells with a
-two-level integer prefix sum (log-depth associative_scan shift-adds,
-bandwidth-bound) plus one scatter — O(n²) work with no sort anywhere.
-
-Measured negative result for the stam2d hybrid repair: standalone this
-runs in ~21 us for a 512² mask on v5e, but embedded in the stam2d step
-the downstream M-element gathers/scatter with data-dependent indices
-cost ~0.5 ms each (the step dropped 390 → 190 steps/s vs the top_k
-version), so the hybrid repair uses a dense dynamic_slice window
-instead (solvers/stam2d.py:_repair_overflow).  Kept as a general
-utility: it IS the right compaction when the consumer needs a true
-index list rather than dense values.
+`lax.top_k` over n² keys lowers to a full variadic sort, and
+`jnp.flatnonzero(size=...)` to a cumsum of the whole mask.  This module
+compacts the indices of set mask cells with a two-level integer prefix
+sum (log-depth associative_scan shift-adds, bandwidth-bound) plus one
+scatter — O(n²) work with no sort anywhere.  A general utility for
+consumers that need a true index list rather than dense values; no
+solver calls it today, and its speed on the GPU is not measured.
 """
 
 from __future__ import annotations

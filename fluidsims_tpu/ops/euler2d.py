@@ -156,9 +156,8 @@ def enforce_positive_faces(qm: Prim, qc: Prim, qp: Prim) -> tuple[Prim, Prim]:
     The scalar loop with early-exit becomes 8 unrolled masked-blend rounds —
     cells already valid are left untouched by the `where`.  (Gating the
     rounds behind a scalar `any(bad)` cond — the reference's early-exit at
-    block granularity — was tried and REMOVED: it measured 28% slower in
-    the Pallas band kernel on hardware, and the separately-compiled cond
-    branches are not guaranteed bit-identical to the inline dataflow.)
+    block granularity — is not done: separately-compiled cond branches are
+    not guaranteed bit-identical to the inline dataflow.)
     """
 
     def blend(a: Prim, c: Prim, sel) -> Prim:

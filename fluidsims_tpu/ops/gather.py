@@ -1,9 +1,9 @@
-"""TPU-tuned element gathers.
+"""Element gathers on flattened indices.
 
 XLA lowers multi-dimensional advanced indexing (f[j, i]) to a
-multi-index gather that runs ~10x slower on TPU than the equivalent
-flattened 1-D take (measured 3.9 vs 40 M elem/s on v5e).  All
-semi-Lagrangian samplers go through these helpers.
+multi-index gather; these helpers take the equivalent 1-D gather on the
+flattened array instead.  All semi-Lagrangian samplers go through them,
+so the gather form is chosen in one place.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 
 Behavioral spec: minmod and the monotonized-central limiter of the reference
 (tau_hypersonic_cuda.cu:217-228, tau_hypersonic.c:49-61).  Branches become
-jnp.where selects — all paths computed, mask-chosen, the TPU idiom for the
-reference's scalar conditionals.
+jnp.where selects — all paths computed, mask-chosen, the array idiom for
+the reference's scalar conditionals.
 """
 
 from __future__ import annotations

@@ -4,8 +4,7 @@ Behavioral spec: HLLE (tau_hypersonic_cuda.cu:483-509) and HLLC with HLLE
 fallback on pathological star states (tau_hypersonic_cuda.cu:519-606,
 tau_hypersonic.c:117-243).  The CUDA early-returns become one expression per
 face with nested `where` selects — every branch is computed for every face
-and the mask picks the valid one, which is the native TPU/VPU execution
-model (no divergence penalty to avoid).
+and the mask picks the valid one (no branch divergence).
 
 Also provides the scalar Rusanov (local Lax–Friedrichs) flux used by the
 Burgers solver (tau_burgers.cu:364-457) and the shallow-water HLL flux

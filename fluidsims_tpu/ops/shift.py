@@ -2,7 +2,7 @@
 
 CUDA kernels read neighbors via index arithmetic with clamping/wrapping
 (e.g. tau_hypersonic_cuda.cu:266-313, tau_gray_scott.cu:137-139).  The
-TPU-native equivalent is whole-array shifted views built from static slices
+array equivalent is whole-array shifted views built from static slices
 and edge/wrap padding — pure dataflow XLA can fuse, no gathers.
 """
 
@@ -41,8 +41,8 @@ def shift_axis_clamped(a: jnp.ndarray, d: int, axis: int) -> jnp.ndarray:
 def shift_axis_wrapped(a: jnp.ndarray, d: int, axis: int) -> jnp.ndarray:
     """Return S with S[..., i, ...] = a[..., (i+d) mod n, ...] (periodic).
 
-    Implemented as slice+concat rather than jnp.roll: measured ~2x faster
-    on TPU (roll lowers to a pair of copies that XLA fuses poorly here)."""
+    Implemented as slice+concat, the same two-piece form jnp.roll lowers
+    to, spelled out so every shift in the package has one form."""
     if d == 0:
         return a
     axis = axis % a.ndim

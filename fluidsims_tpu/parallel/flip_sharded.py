@@ -1,13 +1,13 @@
-"""Multi-chip FLIP/APIC: data-parallel particles + replicated grid.
+"""Multi-device FLIP/APIC: data-parallel particles + replicated grid.
 
 The reference is single-GPU (SURVEY.md §2); its scale axis for particle
 solvers is particle COUNT (65k -> millions), while the grid stays small
-(128^2 = 130 KB of velocity/mass fields).  The TPU-native decomposition
-therefore shards PARTICLES over the mesh and REPLICATES the grid:
+(128^2 = 130 KB of velocity/mass fields).  The decomposition therefore
+shards PARTICLES over the mesh and REPLICATES the grid:
 
   * each device runs P2G on its particle shard into a full local grid,
   * one `lax.psum` per transfer merges the partial mass/momentum grids
-    over ICI (~200 KB/step — microseconds),
+    (~200 KB/step),
   * the grid phase (normalize, 48-iteration Jacobi, projection) is
     computed redundantly on every device — deterministic, so replicas
     stay bit-identical with zero communication,
@@ -93,21 +93,7 @@ def make_sharded_run(cfg: fa.FlipApicConfig, mesh: Mesh, n_steps: int,
             f"particles={cfg.particles} not divisible by {n_dev} devices")
     # per-device config: the cell-dense capacity auto-sizes down with the
     # local particle count (interleaved shards thin every cell uniformly).
-    # 'auto' is pinned to 'dense' here: on TPU it would resolve to the
-    # Pallas transfer kernels, and pallas_call under shard_map with a psum
-    # grid_reduce is an unexercised composition (the kernels buy ~8%
-    # single-chip; not worth the untested path).  An explicit
-    # 'dense'/'scatter' is honored; an explicit 'pallas' raises rather
-    # than silently measuring a different engine.
-    if cfg.engine == "pallas":
-        raise ValueError(
-            "engine='pallas' is not supported under the sharded FLIP "
-            "runner (pallas_call inside shard_map with a psum grid merge "
-            "is an unexercised composition); use engine='auto' (resolves "
-            "to 'dense' here) or an explicit 'dense'/'scatter'")
-    local_engine = "dense" if cfg.engine == "auto" else cfg.engine
-    cfg_local = replace(cfg, particles=cfg.particles // n_dev,
-                        engine=local_engine)
+    cfg_local = replace(cfg, particles=cfg.particles // n_dev)
 
     body = functools.partial(_local_steps, cfg_local, axis, n_steps)
     sharded = jax.shard_map(

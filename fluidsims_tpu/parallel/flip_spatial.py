@@ -20,9 +20,8 @@ is particle count, 65k -> millions, SURVEY §5):
     lax.ppermute), then mass/momentum halos are FILLED from the owners;
   * the 48-iteration Jacobi pressure solve exchanges an H-wide pressure
     band and runs H iterations per exchange, recomputing the eroding
-    halo instead of syncing every sweep (the banded-VMEM pattern of
-    kernels/stam3d_pallas.py applied across chips: ceil(48/3) = 16
-    ppermute rounds instead of 48);
+    halo instead of syncing every sweep (communication-avoiding
+    Jacobi: ceil(48/3) = 16 ppermute rounds instead of 48);
   * G2P (including the +-h affine samples, window +-2) reads only the
     filled halos — H=3 covers the widest window;
   * after advection, particles whose new base column crossed a slab

@@ -1,4 +1,4 @@
-"""Multi-chip 2-D hypersonic solver: x-slab decomposition + ICI halo exchange.
+"""Multi-device 2-D hypersonic solver: x-slab decomposition + halo exchange.
 
 SURVEY.md §5 plan: shard the (ny, nx) grid along x over a 1-D mesh,
 `ppermute` width-2 halos (MUSCL ±1 chained through face fluxes + 5-tap
@@ -47,22 +47,13 @@ def shard_state(state: h2.Hypersonic2DState, mesh: Mesh, axis: str = "x"):
 
 
 def _local_steps(cfg: h2.Hypersonic2DConfig, axis: str, n_dev: int, n_steps: int,
-                 impl: str, interpret: bool, U: Cons, mask, t):
+                 U: Cons, mask, t):
     """Body run per-device under shard_map: n_steps of halo-exchange + dense
     step on the extended slab."""
     ny = cfg.ny
     nxl = cfg.nx // n_dev
     nx_ext = nxl + 2 * HALO
     cfg_ext = replace(cfg, nx=nx_ext)
-
-    core = None
-    if impl == "pallas":
-        # the fused kernel as the per-device cell-update engine; its own BC
-        # padding only touches the cropped halo region, exactly like pad_bc
-        from ..kernels.hypersonic2d_pallas import make_core_pallas
-
-        band = 16 if ny % 16 == 0 else 8
-        core = make_core_pallas(cfg_ext, band=band, interpret=interpret)
 
     idx = lax.axis_index(axis)
     infl = e2.prim_to_cons(
@@ -96,7 +87,6 @@ def _local_steps(cfg: h2.Hypersonic2DConfig, axis: str, n_dev: int, n_steps: int
             s_ext,
             inflow_cols=inflow_cols,
             wavespeed_reduce=lambda v: lax.pmax(v, axis),
-            core=core,
         )
         U_new = Cons(*(f[:, HALO:-HALO] for f in out.U))
         return (U_new, out.t), None
@@ -106,18 +96,13 @@ def _local_steps(cfg: h2.Hypersonic2DConfig, axis: str, n_dev: int, n_steps: int
 
 
 def make_sharded_run(cfg: h2.Hypersonic2DConfig, mesh: Mesh, n_steps: int,
-                     axis: str = "x", impl: str = "xla",
-                     interpret: bool = False):
-    """Build a jitted function running `n_steps` sharded physics steps.
-    `impl='pallas'` runs the fused kernel as each device's cell-update
-    engine (multi-chip x fused-kernel composition); `interpret` runs the
-    kernel in interpret mode for CPU-mesh validation."""
+                     axis: str = "x"):
+    """Build a jitted function running `n_steps` sharded physics steps."""
     n_dev = mesh.shape[axis]
     if cfg.nx % n_dev:
         raise ValueError(f"nx={cfg.nx} not divisible by {n_dev} devices")
 
-    body = functools.partial(_local_steps, cfg, axis, n_dev, n_steps, impl,
-                             interpret)
+    body = functools.partial(_local_steps, cfg, axis, n_dev, n_steps)
     sharded = jax.shard_map(
         body,
         mesh=mesh,

@@ -1,8 +1,8 @@
-"""Multi-chip 2-D hypersonic solver on a TWO-dimensional device mesh.
+"""Multi-device 2-D hypersonic solver on a TWO-dimensional device mesh.
 
 Generalizes hypersonic2d_sharded.py (1-D x-slabs) to an (x, y) device
 grid: each device owns an (ny/py, nx/px) block, exchanges width-2 halos
-with its four mesh neighbors via lax.ppermute (both directions ride ICI),
+with its four mesh neighbors via lax.ppermute (both directions),
 and runs the identical dense step on the doubly-extended block.  Outward
 ghosts carry the physical BCs: inflow columns on the x=0 device column,
 edge replication elsewhere (the outflow clamp in x, and exactly pad_bc's

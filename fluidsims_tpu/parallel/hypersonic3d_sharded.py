@@ -1,4 +1,4 @@
-"""Multi-chip 3-D hypersonic solver: z-slab decomposition + ICI halo
+"""Multi-device 3-D hypersonic solver: z-slab decomposition + halo
 exchange.
 
 The 3-D domain is periodic in y and z (tau_hypersonic_3d_cuda.cu:729-730);
@@ -55,19 +55,10 @@ def _exchange_z(f, axis_name, n_dev):
     return jnp.concatenate([top, f, bot], axis=0)
 
 
-def _local_steps(cfg, axis, n_dev, n_steps, impl, interpret,
+def _local_steps(cfg, axis, n_dev, n_steps,
                  xi, phix, phiy, phiz, lam, zet, solid, t, dtau):
     nzl = cfg.nz // n_dev
     cfg_ext = replace(cfg, nz=nzl + 2 * HALO)
-
-    core = None
-    if impl == "pallas":
-        # the fused z-banded kernel as each device's cell-update engine;
-        # the traced per-slab solid mask flows through the core's solid
-        # input (kernels/hypersonic3d_pallas.make_core_pallas)
-        from ..kernels.hypersonic3d_pallas import make_core_pallas
-
-        core = make_core_pallas(cfg_ext, interpret=interpret)
 
     def one(carry, _):
         fields, sol, t, dtau = carry
@@ -103,8 +94,7 @@ def _local_steps(cfg, axis, n_dev, n_steps, impl, interpret,
             zet=ext[5], solid=sol_ext, t=t, dtau=dtau,
         )
         out = h3.step(cfg_ext, s_ext, solid_pad=sol_pad,
-                      wavespeed_reduce=lambda v: lax.pmax(v, axis),
-                      core=core)
+                      wavespeed_reduce=lambda v: lax.pmax(v, axis))
         new_fields = tuple(
             getattr(out, k)[HALO:-HALO] for k in _FIELDS
         )
@@ -116,10 +106,8 @@ def _local_steps(cfg, axis, n_dev, n_steps, impl, interpret,
 
 
 def make_sharded_run(cfg: h3.Hypersonic3DConfig, mesh: Mesh, n_steps: int,
-                     axis: str = "z", impl: str = "xla",
-                     interpret: bool = False):
-    """`impl='pallas'` runs the fused z-banded kernel as each device's
-    cell-update engine; `interpret` enables CPU-mesh validation."""
+                     axis: str = "z"):
+    """Build a jitted function running `n_steps` z-slab-sharded steps."""
     n_dev = mesh.shape[axis]
     if cfg.nz % n_dev:
         raise ValueError(f"nz={cfg.nz} not divisible by {n_dev} devices")
@@ -128,8 +116,7 @@ def make_sharded_run(cfg: h3.Hypersonic3DConfig, mesh: Mesh, n_steps: int,
             f"slab ({cfg.nz // n_dev}) thinner than 2*WENO halo ({2 * HALO})"
         )
 
-    body = functools.partial(_local_steps, cfg, axis, n_dev, n_steps, impl,
-                             interpret)
+    body = functools.partial(_local_steps, cfg, axis, n_dev, n_steps)
     vol = P(axis, None, None)
     sharded = jax.shard_map(
         body, mesh=mesh,

@@ -1,9 +1,11 @@
 """Device-mesh construction for domain decomposition.
 
 The reference has no distributed computing (SURVEY.md §2: no MPI/NCCL; one
-CUDA device).  The TPU framework's scale axis is domain decomposition over a
+CUDA device).  This framework's scale axis is domain decomposition over a
 `jax.sharding.Mesh`: 1-D slab decomposition in x matches the inflow→outflow
-anisotropy of the hypersonic domain, with halo exchange over ICI.
+anisotropy of the hypersonic domain.  The mesh is a plain device list:
+the cards of one host reach each other at the same rate (NVLink, all to
+all), so the layout follows the algorithm alone.
 """
 
 from __future__ import annotations

@@ -1,11 +1,10 @@
-"""Multi-chip N-body graph layout: body-sharded exact all-pairs forces.
+"""Multi-device N-body graph layout: body-sharded exact all-pairs forces.
 
 The exact engine's O(n^2) repulsion (solvers/nbody_graph._repulsion_exact)
 decomposes perfectly: device d computes the pair rows of its body shard
 against the replicated position set, so per-device compute is n^2/D while
 the only communication is one all-gather of the new positions per step
-(n * dims * 4 B — 1 MB at the reference's 131k bodies, microseconds over
-ICI).  Spring forces use each device's slice of the (static) edge list
+(n * dims * 4 B — 1 MB at the reference's 131k bodies).  Spring forces use each device's slice of the (static) edge list
 with a psum merging the per-device partial accumulations (edges touch
 bodies outside the shard).  This is the scaling axis the reference lacks
 entirely (SURVEY.md §2: no multi-device support of any kind).

@@ -8,11 +8,10 @@ wrap), run the dense local update on the extended slab, crop.
 
 Communication-avoiding composition: because slab-edge corruption creeps
 one cell per step (stencil radius 1), `halo=K` with a `local_step` that
-runs K dense steps (or the K-step temporally-blocked Pallas kernel) pays
-ONE ppermute exchange per K steps instead of one per step — the corrupted
-region after K steps is exactly the K halo columns that get cropped.
-Equivalence is proven in tests/test_periodic_sharded.py for both the XLA
-K-step local body and the Pallas multistep kernel per shard.
+runs K dense steps pays ONE ppermute exchange per K steps instead of one
+per step — the corrupted region after K steps is exactly the K halo
+columns that get cropped.  Equivalence is proven in
+tests/test_periodic_sharded.py for the K-step local body.
 """
 
 from __future__ import annotations

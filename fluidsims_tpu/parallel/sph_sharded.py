@@ -1,22 +1,22 @@
 """Multi-chip SPH: cell-block-sharded pair interactions.
 
 SPH has no grid/particle transfer to psum (unlike FLIP/MPM) — its cost IS
-the pair interactions.  The fused Pallas engine (kernels/sph_pallas.py)
-already computes them block-by-block over the flattened cell axis, so the
-multi-chip decomposition splits those blocks across devices: each device
-slices its cell-block window (+1 halo block each side) out of the
-replicated dense layout, runs the SAME density and forces+integrate
-kernels on it, and the per-device bands are merged with one psum each
-(bands are disjoint, so the psum is an all-gather in disguise; every
-output block is computed by exactly one program in both cases, so the
-sharded trajectory equals single-chip up to compiler FMA contraction of
-the XLA glue — observed at <= 1 ulp).
+the pair interactions.  sph_pairs.py computes them over the flattened
+cell axis, so the multi-chip decomposition splits that axis across
+devices: each device slices its band of cells (+PAD halo columns each
+side) out of the replicated dense layout, runs the SAME density and
+forces+integrate passes on it, and the per-device bands are merged with
+one psum each (bands are disjoint, so the psum is an all-gather in
+disguise; every output column is computed by exactly one device with the
+same expressions, so the trajectory on D devices matches the one-device
+run to f32 summation order — XLA may order each column's pair sums
+differently at another slab width).
 
 Binning and the particle-order gather stay replicated in this first cut
 (~40% of the 65k single-chip step); the pair compute — the part that
 grows quadratically with density and dominates at scale — is what
 shards.  State (pos/vel) is replicated; communication per substep is the
-two band psums (~5 MB at 65k) over ICI.
+two band psums (~5 MB at 65k).
 """
 
 from __future__ import annotations
@@ -28,8 +28,8 @@ import jax.numpy as jnp
 from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..kernels import sph_pallas as sp
 from ..solvers import sph as sph_mod
+from . import sph_pairs as sp
 
 __all__ = ["shard_state", "make_sharded_run"]
 
@@ -42,22 +42,19 @@ def shard_state(state: sph_mod.SPHState, mesh: Mesh):
         lambda x: jax.device_put(x, rep), state)
 
 
-def _local_steps(cfg, axis, n_dev, n_steps, interpret, pos, vel, t, tau,
+def _local_steps(cfg, axis, n_dev, n_steps, pos, vel, t, tau,
                  rain_carry, step_idx):
     from ..ops import cell_dense as cd
 
-    grid, K, BW, PAD, n_copies = sp.grid_geometry(cfg, interpret)
+    grid, PAD = sp.grid_geometry(cfg)
+    K, Gx = grid.K, grid.Gx
     G = grid.Gx * grid.Gy
     Gp = G + 2 * PAD
-    nb = G // BW
-    if nb % n_dev:
-        raise ValueError(
-            f"{nb} cell blocks not divisible by {n_dev} devices")
-    nbl = nb // n_dev
-    W = nbl * BW
+    if G % n_dev:
+        raise ValueError(f"{G} cells not divisible by {n_dev} devices")
+    W = G // n_dev
     dtype = cfg.jax_dtype
-    density_call, forces_call = sp.build_pair_calls(cfg, nbl, interpret)
-    fill = jnp.asarray([sp._SENTINEL, sp._SENTINEL, 0.0, 0.0], dtype)[:, None]
+    fill = jnp.asarray([sp.SENTINEL, sp.SENTINEL, 0.0, 0.0], dtype)[:, None]
     d = lax.axis_index(axis)
     col0 = d * W  # window start in padded columns (PAD halo included)
     zero = jnp.zeros((), col0.dtype)
@@ -74,7 +71,7 @@ def _local_steps(cfg, axis, n_dev, n_steps, interpret, pos, vel, t, tau,
 
         win = lax.dynamic_slice(dense, (zero, zero, col0),
                                 (4, K, W + 2 * PAD))
-        rho_w, pt_w = density_call(*([win[:2]] * n_copies))
+        rho_w, pt_w = sp.density(cfg, Gx, PAD, win[:2])
 
         # disjoint bands -> psum == all-gather
         rp_band = jnp.stack([rho_w, pt_w])
@@ -86,8 +83,8 @@ def _local_steps(cfg, axis, n_dev, n_steps, interpret, pos, vel, t, tau,
         rp_win = lax.dynamic_slice(rp_pad, (zero, zero, col0),
                                    (2, K, W + 2 * PAD))
 
-        dt2d = jnp.reshape(dt_sub.astype(dtype), (1, 1))
-        out_w = forces_call(dt2d, *([win] * n_copies), *([rp_win] * n_copies))
+        out_w = sp.forces_integrate(cfg, Gx, PAD, dt_sub.astype(dtype), win,
+                                    rp_win)
         out = lax.psum(
             lax.dynamic_update_slice(
                 jnp.zeros((4, K, G), dtype), out_w, (zero, zero, d * W)),
@@ -130,12 +127,9 @@ def _local_steps(cfg, axis, n_dev, n_steps, interpret, pos, vel, t, tau,
 
 
 def make_sharded_run(cfg: sph_mod.SPHConfig, mesh: Mesh, n_steps: int,
-                     axis: str = "c", interpret: bool | None = None):
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+                     axis: str = "c"):
     n_dev = mesh.shape[axis]
-    body = functools.partial(_local_steps, cfg, axis, n_dev, n_steps,
-                             interpret)
+    body = functools.partial(_local_steps, cfg, axis, n_dev, n_steps)
     sharded = jax.shard_map(
         body, mesh=mesh,
         in_specs=(P(),) * 6, out_specs=(P(),) * 6,

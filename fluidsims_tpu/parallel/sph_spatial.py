@@ -8,8 +8,8 @@ reference's scale axis is particle count, 65k -> millions (SURVEY §5;
 tau_sph.cu:165-176 rebuilds its cell grid for exactly that growth):
 
   * the flat cell axis, re-ordered X-MAJOR (cid = gx*Gy + gy; the pair
-    kernels are layout-agnostic, kernels/sph_pallas.py grid_geometry
-    transpose=True), is cut into D contiguous x-slabs of W = G/D cells;
+    math is layout-agnostic, sph_pairs.grid_geometry transpose=True),
+    is cut into D contiguous x-slabs of W = G/D cells;
     device d OWNS the particles inside its slab, in a fixed-capacity
     sentinel-padded local buffer of P_cap = slack * n/D slots.  X-slabs,
     not y-slabs: a settling fluid collapses onto the floor — measured on
@@ -22,8 +22,8 @@ tau_sph.cu:165-176 rebuilds its cell grid for exactly that growth):
   * the PAD halo columns are filled by a lax.ppermute band exchange with
     the slab neighbors (dense residents before density; rho/pressure
     bands before forces); outer edges keep the sentinel fill;
-  * the SAME fused Pallas pair kernels (kernels/sph_pallas.py
-    build_pair_calls) run per device over the local window;
+  * the SAME pair passes (sph_pairs.density / forces_integrate) run per
+    device over the local window;
   * after integration, particles whose new cell row crossed a slab
     boundary migrate to the neighbor device through fixed-size
     sentinel-padded ppermute buffers, and each local buffer recompacts
@@ -34,8 +34,8 @@ replicated but the scalar clock.  Capacity overruns (local buffer or
 migration buffer) drop particles and are counted in the returned `lost`
 scalar — raise `slack`/`mig_cap` if it ever goes nonzero.
 
-Trajectories match the single-chip pallas engine to f32 summation-order
-tolerance: cell residency is identical, but the slot order within a
+Trajectories match the replicated-state runner (sph_sharded.py) to f32
+summation-order tolerance: cell residency is identical, but the slot order within a
 cell follows the local buffer order, so in-cell reduction order differs
 (tests/test_sharded_particles.py compares by particle id).  Rain is not
 supported here (its overwrite-oldest-slot semantics are inherently
@@ -61,9 +61,9 @@ from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from typing import NamedTuple
 
-from ..kernels import sph_pallas as sp
 from ..ops import cell_dense as cd
 from ..solvers import sph as sph_mod
+from . import sph_pairs as sp
 from .spatial_common import make_halo_ops, migrate, owner_cap
 
 __all__ = ["SpatialSPHState", "shard_state", "make_sharded_run",
@@ -80,32 +80,30 @@ class SpatialSPHState(NamedTuple):
     lost: jnp.ndarray   # int32: particles dropped to capacity overruns
 
 
-def _geometry(cfg, n_dev, interpret):
+def _geometry(cfg, n_dev):
     # transpose=True: flat order x-major; `grid` below has Gx/Gy swapped,
     # i.e. grid.Gx counts CELL COLUMNS of the transposed layout (= real
     # Gy) — _cid(grid, pos[:, ::-1]) yields cid = gx*Gy + gy
-    grid, K, BW, PAD, n_copies = sp.grid_geometry(cfg, interpret,
-                                                  transpose=True)
+    grid, PAD = sp.grid_geometry(cfg, transpose=True)
     G = grid.Gx * grid.Gy
-    if (G // BW) % n_dev:
-        raise ValueError(f"{G // BW} cell blocks not divisible by "
-                         f"{n_dev} devices")
     W = G // n_dev
-    if W % grid.Gx:
+    if G % n_dev or W % grid.Gx:
         raise ValueError(
-            f"slab width {W} must be whole cell columns (Gy={grid.Gx}); "
-            f"use a device count that divides Gx={grid.Gy}")
-    return grid, K, BW, PAD, n_copies, G, W
+            f"slab width G/D = {G}/{n_dev} must be whole cell columns "
+            f"(Gy={grid.Gx}); use a device count that divides "
+            f"Gx={grid.Gy}")
+    if W < PAD:
+        raise ValueError(f"slab width {W} is narrower than the {PAD}-cell "
+                         "halo; use fewer devices")
+    return grid, PAD, G, W
 
 
 def shard_state(state: sph_mod.SPHState, cfg: sph_mod.SPHConfig,
-                mesh: Mesh, axis: str = "c", slack: float = 4.0,
-                interpret: bool | None = None) -> SpatialSPHState:
+                mesh: Mesh, axis: str = "c",
+                slack: float = 4.0) -> SpatialSPHState:
     """Split a replicated SPHState into per-slab owner buffers."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     n_dev = mesh.shape[axis]
-    grid, K, BW, PAD, _, G, W = _geometry(cfg, n_dev, interpret)
+    grid, PAD, G, W = _geometry(cfg, n_dev)
     P_cap = owner_cap(cfg.n, n_dev, slack)
 
     pos = np.asarray(state.pos)
@@ -118,7 +116,7 @@ def shard_state(state: sph_mod.SPHState, cfg: sph_mod.SPHConfig,
     owner = (gx * grid.Gx + gy) // W
 
     dt = np.dtype(cfg.jax_dtype)
-    pos_g = np.full((n_dev * P_cap, 2), sp._SENTINEL, dt)
+    pos_g = np.full((n_dev * P_cap, 2), sp.SENTINEL, dt)
     vel_g = np.zeros((n_dev * P_cap, 2), dt)
     ids_g = np.full((n_dev * P_cap,), -1, np.int32)
     lost = 0
@@ -158,15 +156,13 @@ def gather_state(s: SpatialSPHState, n: int):
 
 
 
-def _local_steps(cfg, axis, n_dev, n_steps, interpret, P_cap, mig_cap,
+def _local_steps(cfg, axis, n_dev, n_steps, P_cap, mig_cap,
                  pos, vel, ids, t, tau, step_idx, lost):
-    grid, K, BW, PAD, n_copies, G, W = _geometry(cfg, n_dev, interpret)
+    grid, PAD, G, W = _geometry(cfg, n_dev)
+    K, Gx = grid.K, grid.Gx
     Wp = W + 2 * PAD
-    nbl = W // BW
     dtype = cfg.jax_dtype
-    density_call, forces_call = sp.build_pair_calls(cfg, nbl, interpret,
-                                                    transpose=True)
-    fill4 = jnp.asarray([sp._SENTINEL, sp._SENTINEL, 0.0, 0.0], dtype)
+    fill4 = jnp.asarray([sp.SENTINEL, sp.SENTINEL, 0.0, 0.0], dtype)
     d = lax.axis_index(axis)
     cell_base = d * W                      # first owned flat cell
 
@@ -193,13 +189,13 @@ def _local_steps(cfg, axis, n_dev, n_steps, interpret, P_cap, mig_cap,
             fill4[:, None, None], (4, K, PAD)).astype(dtype)
         dense = halo_exchange(dense, halo_fill)
 
-        rho_w, pt_w = density_call(*([dense[:2]] * n_copies))
+        rho_w, pt_w = sp.density(cfg, Gx, PAD, dense[:2])
 
         rp = jnp.pad(jnp.stack([rho_w, pt_w]), ((0, 0), (0, 0), (PAD, PAD)))
         rp = halo_exchange(rp, jnp.zeros((2, K, PAD), dtype))
 
-        dt2d = jnp.reshape(dt_sub.astype(dtype), (1, 1))
-        out = forces_call(dt2d, *([dense] * n_copies), *([rp] * n_copies))
+        out = sp.forces_integrate(cfg, Gx, PAD, dt_sub.astype(dtype), dense,
+                                  rp)
 
         got = out.reshape(4, K * W).T[
             jnp.where(ok, rank * W + (col - PAD), 0)]
@@ -209,7 +205,7 @@ def _local_steps(cfg, axis, n_dev, n_steps, interpret, P_cap, mig_cap,
         posd, veld = sph_mod._integrate(cfg, pos, vel, acc0, dt_sub)
         pos = jnp.where(ok[:, None], got[:, :2], posd)
         vel = jnp.where(ok[:, None], got[:, 2:], veld)
-        pos = jnp.where(alive[:, None], pos, sp._SENTINEL)
+        pos = jnp.where(alive[:, None], pos, sp.SENTINEL)
         vel = jnp.where(alive[:, None], vel, 0.0)
 
         # ---- migration: particles whose new column left this slab -----
@@ -248,26 +244,25 @@ def _local_steps(cfg, axis, n_dev, n_steps, interpret, P_cap, mig_cap,
 
 def make_sharded_run(cfg: sph_mod.SPHConfig, mesh: Mesh, n_steps: int,
                      axis: str = "c", slack: float = 4.0,
-                     mig_cap: int = 0, interpret: bool | None = None):
+                     mig_cap: int = 0):
     """Build run(SpatialSPHState) -> SpatialSPHState over `mesh`."""
     if cfg.rain:
         raise ValueError("spatial SPH sharding requires rain=False "
                          "(overwrite-oldest rain is global; see module "
                          "docstring)")
     if cfg.use_xsph:
-        raise ValueError("pallas SPH engine does not implement XSPH")
+        raise ValueError("the cell-sharded SPH pair path does not "
+                         "implement XSPH")
     if cfg.n >= (1 << 24):
         raise ValueError("particle ids ride the f32 migration payload; "
                          "n must stay below 2^24")
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     n_dev = mesh.shape[axis]
     P_cap = owner_cap(cfg.n, n_dev, slack)
     if mig_cap <= 0:
         mig_cap = max(8, P_cap // 8)
 
     body = functools.partial(_local_steps, cfg, axis, n_dev, n_steps,
-                             interpret, P_cap, mig_cap)
+                             P_cap, mig_cap)
     sharded = jax.shard_map(
         body, mesh=mesh,
         in_specs=(P(axis), P(axis), P(axis), P(), P(), P(), P()),

@@ -4,8 +4,7 @@ Behavioral spec: js_cuda3d.cu — unlike the 2-D solver's zero ring, the
 3-D ghost ring is LIVE (k_set_bnd :119-157 writes reflective ghosts and
 the Jacobi ping-pong alternates the ring between x's originals and the
 zeroed scratch, lin_solve :297-313).  The sharded operators therefore
-transpose the ring-parity logic of the single-chip Pallas kernels
-(kernels/stam3d_pallas.py) from z-bands onto devices:
+carry that ring-parity logic across z-slabs:
 
 * `_lin_solve_sharded` — K-deep z-halo + K fused Jacobi iterations per
   ppermute exchange; ring values (saved from the entry buffer) are
@@ -30,7 +29,7 @@ dependency chain passes through the gz = n+1 ghost face, which the ring
 parity (Jacobi), the ring passthrough (advection), or set_bnd rewrites
 before the junk can cross.
 
-Equivalence vs the single-chip XLA engine is gated in
+Equivalence vs the single-chip step is gated in
 tests/test_stam_sharded.py (bitwise per operator at D=2, few-ulp
 tolerance elsewhere — XLA FMA contraction varies with local shapes).
 """
@@ -294,7 +293,7 @@ def unshard_state(s: s3.Stam3DState, n: int) -> s3.Stam3DState:
 def make_sharded_step(cfg: s3.Stam3DConfig, mesh: Mesh, halo_k: int = 4,
                       axis: str = "x"):
     """Build step(state) -> state over z-slab-sharded Stam3DState fields
-    (the same sequence as solvers.stam3d._step_xla)."""
+    (the same sequence as solvers.stam3d.step)."""
     n_dev = mesh.shape[axis]
     Np = cfg.n + 2
     Zp = padded_z(cfg.n, n_dev)

@@ -1,8 +1,9 @@
-"""Multi-chip τ-clock periodic solvers: Burgers + shallow water x-slabs.
+"""Multi-device τ-clock periodic solvers: Burgers + shallow water x-slabs.
 
 Both solvers are fully periodic shift-stencil updates with one global CFL
 reduction and a replicated scalar clock, so they share one pattern
-(SURVEY.md §5, the ICI analog of the single-GPU whole-grid reductions in
+(SURVEY.md §5, the cross-device analog of the single-GPU whole-grid
+reductions in
 tau_burgers.cu:337-362 / tau_shallow_water.cu:394-423):
 
   * shard the (ny, nx) fields along x over a 1-D mesh;

@@ -8,7 +8,7 @@ write or verify a text baseline with tolerance rel 5e-8|x| + 1e-8
 machine (Makefile:39-43).
 
 Text format matches the reference byte-for-byte so baselines are
-interchangeable in shape (values differ: f32 vs f64, TPU vs GPU).
+interchangeable in shape (values differ: f32 here vs the reference's f64).
 """
 
 from __future__ import annotations

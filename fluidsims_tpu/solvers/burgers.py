@@ -9,7 +9,7 @@ velocity then re-encode (:458-487); K explicit viscosity substeps
 (:688-692) and post-step tau+=dtau, t*=e^dtau (:756-757, :801-802);
 Cole–Hopf 1-D analytic validation (:256-273, :720-736).
 
-TPU design: the flux/update/viscosity kernels are one fused jit region of
+Design: the flux/update/viscosity kernels are one fused jit region of
 periodic shifts; the whole τ loop runs inside lax.scan with dt on device.
 """
 
@@ -32,7 +32,6 @@ __all__ = [
     "init",
     "step",
     "step_fields",
-    "resolve_engine",
     "run",
     "velocities",
     "cole_hopf_exact",
@@ -69,17 +68,12 @@ class BurgersConfig(BaseConfig):
     ck: int = 4
     ca: float = 0.5
     dtype: str = "float32"
-    engine: str = "auto"     # auto | xla | pallas (whole-solve VMEM resident)
-    block_k: int = 16        # fused steps per kernel launch (pallas)
 
     def validate(self):
         self._require(self.nx > 0 and self.ny > 0, "grid dims must be positive")
         self._require(self.u0 != 0.0, "u0 must be nonzero")
         self._require(self.cfl > 0.0, "CFL must be > 0")
         self._require(self.visc_substeps >= 1, "visc_substeps must be >= 1")
-        self._require(self.engine in ("auto", "xla", "pallas"),
-                      "engine must be auto, xla or pallas")
-        self._require(self.block_k >= 1, "block_k must be >= 1")
         if self.colehopf:
             self._require(abs(self.ca) < 1.0, "Cole-Hopf amplitude |ca| must be < 1")
 
@@ -91,37 +85,12 @@ class BurgersState(NamedTuple):
     tau: jnp.ndarray    # log time
 
 
-def sinh_mosaic(x):
-    """sinh from primitives Mosaic lowers (tanh/exp — it has no sinh).
-
-    |x| <= 1: with t = tanh(x/2), sinh(x) = 2t / (1 - t^2) — cancellation-
-    free at small |x| (t ~ x/2 keeps full relative accuracy), unlike the
-    (e^x - e^-x)/2 form.  |x| > 1: the exp form (e^|x| - e^-|x|)/2, whose
-    cancellation is bounded by e^-2 there, while the tanh form saturates
-    (1 - t^2 loses ~2e-4 relative by |x| ~ 8)."""
-    ax = jnp.abs(x)
-    t = jnp.tanh(0.5 * x)
-    small = 2.0 * t / (1.0 - t * t)
-    e = jnp.exp(ax)
-    big = jnp.sign(x) * (0.5 * (e - 1.0 / e))
-    return jnp.where(ax > 1.0, big, small)
+def _encode(cfg, u):
+    return jnp.arcsinh(u / cfg.u0)
 
 
-def asinh_mosaic(x):
-    """asinh from primitives Mosaic lowers (log1p/sqrt — no asinh):
-    sign(x) * log1p(|x| + x^2/(1 + sqrt(1 + x^2))), the standard
-    cancellation-free rearrangement of log(x + sqrt(x^2+1))."""
-    ax = jnp.abs(x)
-    h = jnp.sqrt(1.0 + ax * ax)
-    return jnp.sign(x) * jnp.log1p(ax + ax * ax / (1.0 + h))
-
-
-def _encode(cfg, u, asinh=jnp.arcsinh):
-    return asinh(u / cfg.u0)
-
-
-def _decode(cfg, phi, sinh=jnp.sinh):
-    return cfg.u0 * sinh(phi)
+def _decode(cfg, phi):
+    return cfg.u0 * jnp.sinh(phi)
 
 
 def velocities(cfg: BurgersConfig, s: BurgersState):
@@ -192,9 +161,10 @@ def init(cfg: BurgersConfig) -> BurgersState:
     )
 
 
-def _muscl_faces(q, axis: int, shift=shift_wrapped):
+def _muscl_faces(q, axis: int):
     """Face states (left cell's right face, right cell's left face) with
     minmod slope limiting on phi (tau_burgers.cu:379-395)."""
+    shift = shift_wrapped
     qp = shift(q, 0, 1) if axis == 0 else shift(q, 1, 0)
     qm = shift(q, 0, -1) if axis == 0 else shift(q, -1, 0)
     qpp = shift(q, 0, 2) if axis == 0 else shift(q, 2, 0)
@@ -204,23 +174,22 @@ def _muscl_faces(q, axis: int, shift=shift_wrapped):
     return q + sL, qp - sR
 
 
-def _rusanov_faces(cfg, phi_u, phi_v, u, v, axis: int,
-                   shift=shift_wrapped, sinh=jnp.sinh):
+def _rusanov_faces(cfg, phi_u, phi_v, u, v, axis: int):
     """Rusanov (LLF) face fluxes for both components along one axis.
 
     `u`/`v` are the decoded velocities (sinh(phi)*u0), passed in so the
     non-MUSCL path never re-decodes: sinh is elementwise and the face
     shift is a permutation, so shift(sinh(phi)) == sinh(shift(phi))
     BITWISE — reusing the step's one decode halves the transcendental
-    count of this transcendental-bound solver (BASELINE.md roofline:
-    the asinh codec, not the flux arithmetic, is the bound).  The MUSCL
+    count of the step.  The MUSCL
     path reconstructs on phi and must decode the reconstructed faces
     (tau_burgers.cu:379-395 semantics)."""
+    shift = shift_wrapped
     if cfg.muscl:
-        pUL, pUR = _muscl_faces(phi_u, axis, shift)
-        pVL, pVR = _muscl_faces(phi_v, axis, shift)
-        uL, vL = _decode(cfg, pUL, sinh), _decode(cfg, pVL, sinh)
-        uR, vR = _decode(cfg, pUR, sinh), _decode(cfg, pVR, sinh)
+        pUL, pUR = _muscl_faces(phi_u, axis)
+        pVL, pVR = _muscl_faces(phi_v, axis)
+        uL, vL = _decode(cfg, pUL), _decode(cfg, pVL)
+        uR, vR = _decode(cfg, pUR), _decode(cfg, pVR)
     else:
         uL, vL = u, v
         uR = shift(u, 0, 1) if axis == 0 else shift(u, 1, 0)
@@ -241,25 +210,17 @@ def _rusanov_faces(cfg, phi_u, phi_v, u, v, axis: int,
     return F_u, F_v
 
 
-def step_fields(cfg: BurgersConfig, phi_u, phi_v, t,
-                shift=shift_wrapped, wavespeed_reduce=None,
-                codec=(jnp.sinh, jnp.arcsinh)):
+def step_fields(cfg: BurgersConfig, phi_u, phi_v, t, wavespeed_reduce=None):
     """One τ-clock step on the raw (phi_u, phi_v) fields; returns
     (phi_u2, phi_v2) (tau_burgers.cu do_step :677-718).
 
-    `shift` is the periodic 2-D shift primitive — shift_wrapped for the
-    XLA path, a pltpu.roll-based equivalent inside the resident Pallas
-    kernel (kernels/burgers_resident_pallas.py) — so both engines share
-    this one physics source.  `wavespeed_reduce` (e.g. lax.pmax over a
-    mesh axis) extends the CFL max across devices for the sharded path.
-    `codec` is the (sinh, asinh) pair for the log-velocity state — the
-    kernel passes (sinh_mosaic, asinh_mosaic) because Mosaic has no
-    sinh/asinh lowering."""
-    sinh, asinh = codec
+    `wavespeed_reduce` (e.g. lax.pmax over a mesh axis) extends the CFL
+    max across devices for the sharded path."""
+    shift = shift_wrapped
     one_d = cfg.colehopf
     # the ONE decode of the step: faces reuse u0/v0 (see _rusanov_faces)
-    u0 = _decode(cfg, phi_u, sinh)
-    v0 = _decode(cfg, phi_v, sinh)
+    u0 = _decode(cfg, phi_u)
+    v0 = _decode(cfg, phi_v)
     u, v = u0, v0
 
     inv_dy = 0.0 if (one_d or cfg.ny <= 1) else 1.0 / cfg.dy
@@ -269,16 +230,14 @@ def step_fields(cfg: BurgersConfig, phi_u, phi_v, t,
     smax = jnp.maximum(smax, 1e-12)
     dt = jnp.minimum(t * cfg.dtau, cfg.cfl / smax)
 
-    Fu_x, Fv_x = _rusanov_faces(cfg, phi_u, phi_v, u0, v0, axis=0,
-                                shift=shift, sinh=sinh)
+    Fu_x, Fv_x = _rusanov_faces(cfg, phi_u, phi_v, u0, v0, axis=0)
     dFx_u = Fu_x - shift(Fu_x, 0, -1)
     dFx_v = Fv_x - shift(Fv_x, 0, -1)
     u = u - dt * dFx_u / cfg.dx
     v = v - dt * dFx_v / cfg.dx
 
     if not one_d:
-        Gu_y, Gv_y = _rusanov_faces(cfg, phi_u, phi_v, u0, v0, axis=1,
-                                    shift=shift, sinh=sinh)
+        Gu_y, Gv_y = _rusanov_faces(cfg, phi_u, phi_v, u0, v0, axis=1)
         dGy_u = Gu_y - shift(Gu_y, -1, 0)
         dGy_v = Gv_y - shift(Gv_y, -1, 0)
         u = u - dt * dGy_u / cfg.dy
@@ -302,7 +261,7 @@ def step_fields(cfg: BurgersConfig, phi_u, phi_v, t,
         u = u + cfg.nu * sub * lap_u
         v = v + cfg.nu * sub * lap_v
 
-    return _encode(cfg, u, asinh), _encode(cfg, v, asinh)
+    return _encode(cfg, u), _encode(cfg, v)
 
 
 def step(cfg: BurgersConfig, s: BurgersState,
@@ -317,36 +276,7 @@ def step(cfg: BurgersConfig, s: BurgersState,
     )
 
 
-def resolve_engine(cfg: BurgersConfig) -> str:
-    """'pallas' = the whole-solve VMEM-resident K-step kernel
-    (kernels/burgers_resident_pallas.make_multistep_pallas).  Needs f32,
-    nx % 128 == 0, nx*ny <= 3M cells, not colehopf.  'auto' takes it on
-    TPU: measured 42115 steps/s at the 512^2 reference default with k=16
-    vs 22648 for the XLA path — 1.86x (round-3 tune sweep, after the
-    sinh_mosaic/asinh_mosaic codec fix; a few-ulp codec difference vs
-    the XLA path's native sinh/asinh)."""
-    from ..kernels.burgers_resident_pallas import resident_eligible
-
-    if cfg.engine != "auto":
-        if cfg.engine == "pallas" and not resident_eligible(cfg):
-            raise ValueError(
-                "engine='pallas' requires float32, nx % 128 == 0, "
-                "nx*ny <= 3M cells and colehopf=False")
-        return cfg.engine
-    import jax
-
-    return ("pallas" if (resident_eligible(cfg)
-                         and jax.default_backend() == "tpu") else "xla")
-
-
 def run(cfg: BurgersConfig, s: BurgersState, n_steps: int) -> BurgersState:
     from ..core.stepper import scan_steps
 
-    if resolve_engine(cfg) == "pallas":
-        import jax
-
-        from ..kernels.burgers_resident_pallas import run_multistep
-
-        return run_multistep(cfg, s, n_steps, k=cfg.block_k,
-                             interpret=jax.default_backend() != "tpu")
     return scan_steps(lambda st: step(cfg, st), s, n_steps)

@@ -9,9 +9,7 @@ FLIP/PIC blend, affine matrix from central differences of the projected
 field, advection with restitution -0.35 walls at [0.01, 0.99], and density
 rasterization (sample_grid/k_g2p :186-241).
 
-TPU design: TPU element scatters/gathers run at ~40-90M elem/s, so the
-atomicAdd P2G and the per-particle bilinear G2P are both pathology-bound.
-The step instead bins particles into the cell-dense (n, n, K) layout
+Design: engine="dense" bins particles into the cell-dense (n, n, K) layout
 (ops/cell_dense.py) once per step: P2G becomes 9 per-offset dense
 sums-over-K followed by static grid shifts (with an exact per-axis
 multiplicity factor reproducing the reference's index clipping at the
@@ -20,9 +18,9 @@ broadcast over K (static shifts of the grid — zero gathers).  Particles
 beyond the K=bin_capacity occupancy of a cell are dropped from the
 transfers (the default K is sized ~16x the mean occupancy; overflow is
 countable via ops.cell_dense).  The Jacobi loop is lax.fori_loop; the
-whole step is one jit region.  engine="scatter" selects the direct
-scatter/gather formulation — exact at any occupancy, ~an order of
-magnitude slower.
+whole step is one jit region.  engine="scatter" is the reference's own
+formulation — atomic-add P2G (`.at[].add`) and a
+per-particle gather G2P — exact at any occupancy.
 """
 
 from __future__ import annotations
@@ -37,7 +35,7 @@ from jax import lax
 from ..core.config import BaseConfig
 
 __all__ = ["FlipApicConfig", "FlipApicState", "init", "step", "run",
-           "density_grid", "resolve_engine"]
+           "density_grid"]
 
 
 @dataclass(frozen=True)
@@ -51,7 +49,11 @@ class FlipApicConfig(BaseConfig):
     apic: float = 0.85
     jitter: float = 0.22
     seed: int = 1337
-    engine: str = "auto"    # auto | pallas | dense | scatter
+    # dense = cell-dense transfers, which drop particles beyond
+    # bin_capacity per cell; scatter = the reference's atomic-add P2G,
+    # exact at any occupancy.  On the H100 neither was reliably faster
+    # (PERF.md, engine A/B), so the default stayed dense.
+    engine: str = "dense"
     bin_capacity: int = 0   # 0 = auto (~16x mean occupancy)
     dtype: str = "float32"
 
@@ -60,8 +62,8 @@ class FlipApicConfig(BaseConfig):
         self._require(self.grid >= 16, "grid must be >= 16")
         self._require(0.0 <= self.flip <= 1.0, "flip in [0,1]")
         self._require(0.0 <= self.apic <= 1.0, "apic in [0,1]")
-        self._require(self.engine in ("auto", "pallas", "dense", "scatter"),
-                      "unknown engine")
+        self._require(self.engine in ("dense", "scatter"),
+                      "engine must be dense or scatter")
 
     @property
     def capacity(self) -> int:
@@ -458,39 +460,12 @@ def _step_dense(cfg: FlipApicConfig, s: FlipApicState,
     )
 
 
-def resolve_engine(cfg: FlipApicConfig) -> str:
-    """'auto' = the fused Pallas transfer kernels on TPU (grid % 128,
-    ~8% over the cell-dense XLA engine at 65k; the rest of the step is
-    the shared binning sort + value scatter), cell-dense XLA elsewhere;
-    'dense'/'scatter'/'pallas' are explicit."""
-    if cfg.engine != "auto":
-        return cfg.engine
-    import jax
-
-    return ("pallas" if (cfg.grid % 128 == 0 and cfg.dtype == "float32"
-                         and jax.default_backend() == "tpu")
-            else "dense")
-
-
 def step(cfg: FlipApicConfig, s: FlipApicState,
          grid_reduce=None, flip=None, apic=None) -> FlipApicState:
     """`flip`/`apic` optionally override the config blend factors as traced
     scalars so the interactive F/A nudges run without a recompile (the
-    reference's instant keys, tau_flip_apic.cu).  The Pallas engine bakes
-    them into kernel bodies, so a live override routes through the
-    bitwise-equal cell-dense engine instead."""
-    eng = resolve_engine(cfg)
-    if eng == "pallas" and (flip is not None or apic is not None):
-        eng = "dense"
-    if eng == "pallas":
-        import jax
-
-        from ..kernels.flip_pallas import make_step_pallas
-
-        return make_step_pallas(
-            cfg, interpret=jax.default_backend() != "tpu")(
-                s, grid_reduce=grid_reduce)
-    if eng == "dense":
+    reference's instant keys, tau_flip_apic.cu)."""
+    if cfg.engine == "dense":
         return _step_dense(cfg, s, grid_reduce, flip=flip, apic=apic)
     return _step_scatter(cfg, s, grid_reduce, flip=flip, apic=apic)
 

@@ -1,29 +1,18 @@
-"""Resident-slab FLIP/APIC engine — a DOCUMENTED NEGATIVE RESULT.
+"""Resident-slab FLIP/APIC engine — an experiment kept with its tests.
 
-Hypothesis (BASELINE.md round-3 roofline: the dense engine is bound by
-per-step binning — packed-key sort ~2.5 ms + slab scatter ~3.3 ms +
-transfers ~1.5 ms at the reference 65k): keep particles RESIDENT in the
-(n, n, K) slab across steps (the slab is the lax.scan carry) so nothing
-is re-sorted or re-scattered, and migrate only the ~18% of particles
-that cross a cell boundary per step (measured) through a fixed-capacity
-buffer.
+Hypothesis: the dense engine is bound by per-step binning (one packed-key
+sort, one slab scatter, then the transfers); keeping particles RESIDENT
+in the (n, n, K) slab across steps (the slab is the lax.scan carry) means
+nothing is re-sorted or re-scattered, and only the particles that cross a
+cell boundary per step (~18% at the reference 65k) migrate through a
+fixed-capacity buffer.
 
-Measured outcome on the v5e (65k, grid 128, K=72, 100-step scans,
-best-of-3): **4.0 M psteps/s vs 9.0 dense / 10.3 pallas — 2.2x
-SLOWER.**  The migration machinery is the cost: on TPU, scatter time
-scales with ROW COUNT, not bytes, and every slab-sized (1.18M-slot)
-non-fusible op sits on a ~4-9 ms floor regardless of width — measured
-1.18M-row scatter 7.9 ms (1 channel or 10, same), free-table scatter
-8.6 ms, cumsum over 1.18M 4.1 ms, slab-wide where-select 3.5 ms; sorts
-have a ~3 ms floor that a 27k mover sort does not beat (65k sorts in
-3.1 ms).  Extracting the few movers requires compacting over ALL slots,
-so "incremental" costs more than the 5.8 ms full rebuild it replaces.
-The dense engine's binning is already at the indirection floor; the
-remaining lever at this shape would have to avoid slab-sized
-compaction entirely, which the cell-dense representation cannot.
+On the accelerator this repository first targeted it lost to the dense
+engine: extracting the few movers needs compactions over ALL slots, which
+cost more than the full rebuild they replace.  Its speed on the GPU is not
+measured; ROADMAP Queue 3 decides whether the code stays.
 
-Kept (with tests) as the measured proof of that verdict, mirroring
-ops/rank_pallas.py.  The migration scheme itself:
+The migration scheme:
 
   * transfers run straight off the resident channels via the shared
     flip_apic._dense_transfers (same math as the dense engine, f32
@@ -44,12 +33,11 @@ ops/rank_pallas.py.  The migration scheme itself:
 Use through run_resident(): flat state is binned once per call,
 stepped N times resident, and flattened back (the density raster is
 computed once at the end — intermediate rasters are unobservable
-through a scan anyway).  Not wired into resolve_engine(): it loses on
-chip and exists as evidence.
+through a scan anyway).  Not a `FlipApicConfig.engine` value.
 
 Behavioral spec: tau_flip_apic.cu (per-kernel citations in
-solvers/flip_apic.py); the residency scheme is TPU-native design with
-no reference counterpart (CUDA rebuilds the linked-list grid every
+solvers/flip_apic.py); the residency scheme is this repository's design
+with no reference counterpart (CUDA rebuilds the linked-list grid every
 step with atomicExch, tau_sph.cu:165-176 pattern).
 """
 

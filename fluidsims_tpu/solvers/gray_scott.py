@@ -5,13 +5,8 @@ Behavioral spec: tau_gray_scott.cu — 5-point periodic Laplacian + reaction
 xorshift32 random speckles (init_pattern, :173-204), defaults Du=0.2 Dv=0.1
 F=0.03 k=0.06 dt=1 dx=1 seed=1337 (:43-61).
 
-TPU design: the entire update is one fused elementwise+shift dataflow; XLA
-fuses the rolls and arithmetic into a single memory-bound pass over (u, v)
-at ~80% of HBM bandwidth.  Because the bound is TRAFFIC, the engine='pallas'
-path (default on TPU) runs block_k steps per HBM round trip instead — each
-row band is stepped block_k times entirely in VMEM with wrapped ghost
-cells (kernels/gray_scott_pallas.make_multistep_pallas) — ~2x end-to-end
-at 2048^2, exact to f32 FMA-contraction ulps.
+Design: the entire update is one fused elementwise+shift dataflow; XLA
+fuses the rolls and arithmetic into a single memory-bound pass over (u, v).
 """
 
 from __future__ import annotations
@@ -25,8 +20,7 @@ import numpy as np
 from ..core.config import BaseConfig
 from ..ops.shift import shift_wrapped
 
-__all__ = ["GrayScottConfig", "GrayScottState", "init", "step", "run",
-           "resolve_engine"]
+__all__ = ["GrayScottConfig", "GrayScottState", "init", "step", "run"]
 
 
 @dataclass(frozen=True)
@@ -41,16 +35,11 @@ class GrayScottConfig(BaseConfig):
     kill: float = 0.06
     seed: int = 1337
     dtype: str = "float32"
-    engine: str = "auto"     # auto | xla | pallas (K-step temporal blocking)
-    block_k: int = 16        # fused steps per HBM round trip (pallas)
 
     def validate(self):
         self._require(self.nx > 0 and self.ny > 0, "grid dims must be positive")
         self._require(self.dx > 0 and self.dt > 0, "dx, dt must be positive")
         self._require(self.Du >= 0 and self.Dv >= 0, "diffusivities must be >= 0")
-        self._require(self.engine in ("auto", "xla", "pallas"),
-                      "engine must be auto, xla or pallas")
-        self._require(self.block_k >= 1, "block_k must be >= 1")
 
 
 class GrayScottState(NamedTuple):
@@ -121,38 +110,9 @@ def step(cfg: GrayScottConfig, s: GrayScottState,
     return GrayScottState(u=s.u + cfg.dt * du, v=s.v + cfg.dt * dv)
 
 
-def resolve_engine(cfg: GrayScottConfig) -> str:
-    """'pallas' = the K-step temporally-blocked VMEM kernel
-    (kernels/gray_scott_pallas.make_multistep_pallas): the single-step
-    update is HBM-bound, so fusing block_k steps per round trip is the
-    only lever — ~2x measured at 2048^2.  Needs f32 and nx % 128 == 0;
-    'auto' picks it on TPU, the XLA dataflow path elsewhere."""
-    has_band = any(cfg.ny % b == 0 and b >= cfg.block_k
-                   for b in (512, 256, 128, 64, 32, 16))
-    eligible = (cfg.dtype == "float32" and cfg.nx % 128 == 0
-                and cfg.block_k <= 64 and has_band)
-    if cfg.engine != "auto":
-        if cfg.engine == "pallas" and not eligible:
-            raise ValueError(
-                "engine='pallas' requires float32, nx % 128 == 0, "
-                "block_k <= 64 and a row band (16..512) dividing ny")
-        return cfg.engine
-    import jax
-
-    return "pallas" if (eligible and jax.default_backend() == "tpu") else "xla"
-
-
 def run(cfg: GrayScottConfig, s: GrayScottState, n_steps: int,
         feed=None, kill=None) -> GrayScottState:
     from ..core.stepper import scan_steps
 
-    if resolve_engine(cfg) == "pallas":
-        import jax
-
-        from ..kernels.gray_scott_pallas import run_multistep
-
-        return run_multistep(cfg, s, n_steps, k=cfg.block_k,
-                             interpret=jax.default_backend() != "tpu",
-                             feed=feed, kill=kill)
     return scan_steps(lambda st: step(cfg, st, feed=feed, kill=kill), s,
                       n_steps)

@@ -10,7 +10,7 @@ past a sphere-cone capsule with explicit 4th-order-stencil diffusion:
   * HLLC face fluxes         :964-1030
   * update + diffusion + fix :1032-1176
 
-TPU-native design choices (vs the CUDA pipeline):
+Design choices (vs the CUDA pipeline):
   * One fused dataflow step: the predict/flux/update kernels become a single
     jit region of whole-array shifts + selects; XLA fuses them so the four
     face-state SoA arrays and two flux SoA arrays that the reference streams
@@ -20,11 +20,8 @@ TPU-native design choices (vs the CUDA pipeline):
     update directly — the whole multi-step loop is one `lax.scan`.
   * Branch-free BCs: neighbor_or_wall's branches (:266-290) become shifted
     arrays + mask selects evaluated for the entire grid at once.
-  * float32 by default (TPU f64 is emulated); dtype is configurable and the
-    regression gate compares against a float64 NumPy oracle at f32 tolerance.
-
-A Pallas fused kernel for the hot path lives in
-fluidsims_tpu.kernels.hypersonic2d_pallas (same contract, same tests).
+  * float32 by default; dtype is configurable and the regression gate
+    compares against a float64 NumPy oracle at f32 tolerance.
 """
 
 from __future__ import annotations
@@ -221,8 +218,7 @@ def _bcast(c: Cons, shape) -> Cons:
 # columns are constant along x (inflow / outflow copy), so MUSCL
 # reconstruction inside them degenerates to exactly the reference's
 # boundary states (proof mirrors parallel/hypersonic2d_sharded.py, which
-# uses the same trick across chips).  The core doubles as the Pallas
-# kernel body (kernels/hypersonic2d_pallas.py).
+# uses the same trick across chips).
 # ---------------------------------------------------------------------------
 
 PAD = 2  # stencil reach: MUSCL(1) chained through faces + diffusion(2)
@@ -260,7 +256,7 @@ def step_core_padded(cfg, Up: Cons, Mp, dt) -> Cons:
     """The local physics update on a halo-2 padded block: MUSCL predict ->
     HLLC face fluxes -> conservative update + diffusion -> positivity fix.
     Returns the new interior state (shape = padded minus 2*PAD each dim).
-    Pure slicing + elementwise ops: safe inside a Pallas kernel.
+    Pure slicing + elementwise ops.
 
     The primitive decode is hoisted: cons_to_prim runs ONCE on the whole
     padded block and every window takes slices of it — bitwise-identical
@@ -418,7 +414,6 @@ def step(
     s: Hypersonic2DState,
     inflow_cols=None,
     wavespeed_reduce=None,
-    core=None,
 ) -> Hypersonic2DState:
     """One full physics step — the reference's 5-kernel sequence
     (tau_hypersonic_cuda.cu:1833-1889) as one fused jit region:
@@ -428,8 +423,6 @@ def step(
     path (fluidsims_tpu.parallel): a traced bool column mask selecting where
     the inflow BC applies (default: global column 0), and a cross-device
     reduction (lax.pmax over the mesh axis) for the CFL wavespeed.
-    `core` overrides the cell-update engine ((U, mask, dt) -> Cons; the
-    fused Pallas kernel via kernels.hypersonic2d_pallas.make_core_pallas).
     """
     U, mask = s.U, s.mask
 
@@ -446,11 +439,8 @@ def step(
         maxs = wavespeed_reduce(maxs)
     dt = cfl_dt(maxs, cfg.cfl, dx=1.0, nu_max=cfg.nu_max)
 
-    if core is None:
-        Up, Mp = pad_bc(cfg, U, mask)
-        Un = step_core_padded(cfg, Up, Mp, dt)
-    else:
-        Un = core(U, mask, dt)
+    Up, Mp = pad_bc(cfg, U, mask)
+    Un = step_core_padded(cfg, Up, Mp, dt)
 
     return Hypersonic2DState(U=Un, mask=mask, t=s.t + dt)
 

@@ -21,7 +21,7 @@ Behavioral spec: tau_hypersonic_3d_cuda.cu —
   * τ clock: t*=e^dτ, dt=t·dτ, then dτ feedback 0.8x/1.1x against dt_CFL,
     clamped to [1e-7, 5e-2] (:1680-1704)
 
-TPU design notes:
+Design notes:
   * The CUDA kernel computes BOTH faces of every cell, so each interior face
     flux is evaluated twice (identical values except at solid-degraded
     faces).  Here interior face fluxes are computed ONCE on (…, n+1) face
@@ -590,9 +590,7 @@ def _face_prims(cfg, qp: PrimT, solid_pad, axis: int):
 
     # both reconstructions in one pass with the smoothness indicators,
     # their reciprocal squares, and two of three candidate polynomials
-    # shared across faces AND sides (ops/weno.weno5_lr_slab) — measured
-    # on hardware this is where the WENO sweep's arithmetic headroom was
-    # (see BASELINE.md hyp3d A/B)
+    # shared across faces AND sides (ops/weno.weno5_lr_slab)
     def crop_other(f):
         sl = [slice(HALO, f.shape[d] - HALO) for d in range(3)]
         sl[arr_ax] = slice(None)
@@ -686,15 +684,13 @@ def _mirror(q: PrimT, axis: int) -> PrimT:
 
 
 def step_core_padded(cfg: Hypersonic3DConfig, qp: PrimT, solid_pad,
-                     dt, inflow_gain, x0: int = 0,
-                     solid_box="dense", sponge_mode: str = "slab") -> PrimT:
+                     dt, inflow_gain, solid_box="dense") -> PrimT:
     """The full cell update on a halo-extended window of BC-resolved
     primitives: WENO faces -> HLLC with wall mirroring -> conservative
     update -> repair -> Landau-Teller -> sponges.  Window-agnostic along
-    every axis (the z-banded Pallas kernel calls it on z-slices); `x0` is
-    the global x index of the window's first interior column (the sponge
-    ramps are functions of global x).  Shared by the XLA and Pallas
-    paths.
+    z and y (the z-slab sharded runner calls it on extended slabs); x is
+    always the whole domain, since the sponge ramps are functions of
+    global x.
 
     `solid_box`: "dense" computes the wall-mirror fluxes at every face
     (always correct); a solid_box_from_mask value (or None for no solid)
@@ -781,9 +777,7 @@ def step_core_padded(cfg: Hypersonic3DConfig, qp: PrimT, solid_pad,
     relax = dt / max(cfg.tau_vib, TAU_VIB_MIN)
     q1 = q1._replace(ev=jnp.maximum(q1.ev + (ev_eq - q1.ev) * relax, 0.0))
 
-    # sponge layers (:1295-1344); iota-based so the same code lowers inside
-    # Pallas kernels (captured np constant arrays are rejected there).
-    # Each sponge transforms only its static x-column slab: inside the
+    # sponge layers (:1295-1344).  Each sponge transforms only its static x-column slab: inside the
     # slab the math is the dense form on a slice (bitwise-equal); outside,
     # the dense form was a provable identity (ramp k == 0.0 exactly and
     # post-repair fields satisfy the floors), so skipping it changes
@@ -791,26 +785,16 @@ def step_core_padded(cfg: Hypersonic3DConfig, qp: PrimT, solid_pad,
     # signs to +0.0, which no downstream consumer distinguishes).
     def sponge_slab(q, g_lo, g_hi, fn):
         """Apply fn(sub, col_lo) to window columns covering global x in
-        [g_lo, g_hi); col_lo is the slice's window-column offset.
-
-        sponge_mode="dense" (the Pallas kernels) applies fn to the whole
-        window instead: the ramp is exactly 0.0 outside the slab and
-        post-repair fields satisfy the floors, so the result is identical
-        — and Mosaic cannot lower the unaligned lane-dimension slice +
-        concat the slab form needs ("offset mismatch on non-concat
-        dimension"), while for XLA the slab form saves real work."""
+        [g_lo, g_hi); col_lo is the slice's window-column offset."""
         wx = q.r.shape[2]
-        col_lo, col_hi = max(g_lo - x0, 0), min(g_hi - x0, wx)
+        col_lo, col_hi = max(g_lo, 0), min(g_hi, wx)
         if col_lo >= col_hi:
             return q
-        if sponge_mode == "dense":
-            return fn(q, 0)
         sub = PrimT(*(f[:, :, col_lo:col_hi] for f in q))
         sub = fn(sub, col_lo)
 
         def stitch(f, g):
-            # Mosaic rejects zero-sized vector types, so emit only the
-            # non-empty segments (XLA tolerates empties; Pallas doesn't).
+            # emit only the non-empty segments
             parts = ([f[:, :, :col_lo]] if col_lo > 0 else []) + [g] + \
                 ([f[:, :, col_hi:]] if col_hi < wx else [])
             return parts[0] if len(parts) == 1 else \
@@ -819,10 +803,8 @@ def step_core_padded(cfg: Hypersonic3DConfig, qp: PrimT, solid_pad,
         return PrimT(*(stitch(f, g) for f, g in zip(q, sub)))
 
     def xs_of(sub, col_lo):
-        # int iota + cast: Mosaic's tpu.iota only supports integer results
         return jax.lax.broadcasted_iota(
-            jnp.int32, (1, 1, sub.r.shape[2]), 2).astype(dtype) \
-            + (x0 + col_lo)
+            jnp.int32, (1, 1, sub.r.shape[2]), 2).astype(dtype) + col_lo
 
     tgtT = max(cfg.inflow_p, RHO_P_FLOOR) / (
         max(cfg.inflow_r, RHO_P_FLOOR) * cfg.R
@@ -876,13 +858,10 @@ def step_core_padded(cfg: Hypersonic3DConfig, qp: PrimT, solid_pad,
 
 def step(cfg: Hypersonic3DConfig, s: Hypersonic3DState,
          solid_pad=None, wavespeed_reduce=None,
-         core=None, gain_mul=None) -> Hypersonic3DState:
+         gain_mul=None) -> Hypersonic3DState:
     """One fused step. `solid_pad` (halo-3 extended solid mask) and
     `wavespeed_reduce` (cross-device lax.pmax) are hooks for the sharded
-    multi-chip path (parallel/hypersonic3d_sharded.py); `core` overrides
-    the cell-update engine (the fused Pallas kernel,
-    kernels/hypersonic3d_pallas.py) and must have step_core_padded's
-    (qp, solid_pad, dt, inflow_gain) -> q1 signature.  `gain_mul`
+    multi-chip path (parallel/hypersonic3d_sharded.py).  `gain_mul`
     multiplies the inflow ramp (the interactive a_gain nudge,
     tau_hypersonic_3d_cuda.cu:1658-1661) and may be a traced scalar so
     nudging it does not recompile."""
@@ -904,11 +883,8 @@ def step(cfg: Hypersonic3DConfig, s: Hypersonic3DState,
     q = _decode(cfg, s.xi, s.phix, s.phiy, s.phiz, s.lam, s.zet)
     qp = _padded_prims(cfg, q, solid_pad)
 
-    if core is None:
-        q1 = step_core_padded(cfg, qp, solid_pad, dt, inflow_gain,
-                              solid_box=solid_box)
-    else:
-        q1 = core(qp, solid_pad, dt, inflow_gain)
+    q1 = step_core_padded(cfg, qp, solid_pad, dt, inflow_gain,
+                          solid_box=solid_box)
 
     # max wavespeed over fluid cells (atomicMaxFloat analog, :1345-1351)
     a1 = soundspeed(cfg, q1)

@@ -7,19 +7,16 @@ Behavioral spec: tau_lbm.cu — lattice tables (:56-61), BGK equilibrium
 x drive (collide_stream_kernel :94-132), speed render (:134-155), MLUPS
 metric (:291-294).
 
-TPU design: the reference PUSHES post-collision packets to neighbors
-(scattered writes).  Scatter doesn't vectorize on TPU, so this is the PULL
-formulation of the identical update: each fluid cell's slot q receives the
+Design: the reference PUSHES post-collision packets to neighbors
+(scattered writes).  This is the PULL formulation of the identical update,
+which needs no scatter: each fluid cell's slot q receives the
 post-collision q-packet of the upstream cell (i - e_q), or its own opp(q)
 packet when the upstream link is a wall (on-link bounce-back), and solid
 cells reflect all packets in place.  Slot-for-slot equal to the reference's
 push (verified against a NumPy push oracle in tests/test_lbm.py).
 f is one (9, ny, nx) array so XLA fuses the whole update into a single
-pass — which sits near the HBM roofline for the 9-direction pattern.
-Because the bound is TRAFFIC, the engine='pallas' path runs block_k
-steps per HBM round trip instead: each row band is stepped block_k
-times entirely in VMEM with wrapped ghost cells
-(kernels/lbm_pallas.make_multistep_pallas).
+memory-bound pass, the shape of the reference's one fused
+collide_stream_kernel.
 """
 
 from __future__ import annotations
@@ -34,8 +31,7 @@ from ..core.config import BaseConfig
 from ..ops.shift import shift_axis_wrapped
 
 __all__ = ["LBMConfig", "LBMState", "EX", "EY", "OPP", "W", "feq",
-           "init", "step", "run", "macroscopic", "speed_field",
-           "resolve_engine", "pallas_eligible"]
+           "init", "step", "run", "macroscopic", "speed_field"]
 
 # D2Q9 lattice: rest, +x, +y, -x, -y, then diagonals (tau_lbm.cu:56-61).
 EX = np.array([0, 1, 0, -1, 0, 1, -1, -1, 1])
@@ -57,15 +53,10 @@ class LBMConfig(BaseConfig):
     obstacle: bool = True
     obstacle_radius: float = 32.0
     dtype: str = "float32"
-    engine: str = "auto"      # auto | xla | pallas (K-step temporal blocking)
-    block_k: int = 8          # fused steps per HBM round trip (pallas)
 
     def validate(self):
         self._require(self.nx >= 16 and self.ny >= 16, "grid must be >= 16^2")
         self._require(self.tau >= 0.501, "tau must be > 0.5 for stability")
-        self._require(self.engine in ("auto", "xla", "pallas"),
-                      "engine must be auto, xla or pallas")
-        self._require(self.block_k >= 1, "block_k must be >= 1")
 
 
 class LBMState(NamedTuple):
@@ -162,48 +153,7 @@ def speed_field(cfg: LBMConfig, s: LBMState):
     return jnp.where(s.solid, -1.0, sp)
 
 
-def pallas_eligible(cfg: LBMConfig) -> bool:
-    """Shape/dtype gate for the K-step temporally-blocked kernel."""
-    from ..kernels.lbm_pallas import band_fits_vmem
-
-    has_band = any(cfg.ny % b == 0 and b >= cfg.block_k
-                   and band_fits_vmem(cfg.nx, b, cfg.block_k)
-                   for b in (128, 64, 32, 16))
-    return (cfg.dtype == "float32" and cfg.nx % 128 == 0
-            and cfg.block_k <= 64 and has_band)
-
-
-def resolve_engine(cfg: LBMConfig) -> str:
-    """'pallas' = the K-step temporally-blocked VMEM kernel
-    (kernels/lbm_pallas.make_multistep_pallas): the single-step update is
-    near the HBM roofline, so fusing block_k steps per round trip is the
-    remaining traffic lever.  Needs f32, nx % 128 == 0 and a row band
-    that fits scoped VMEM.  'auto' takes it on TPU: measured 4613
-    steps/s (9683 MLUPS) at 2048x1024 with k=8/band=64 vs 2607 MLUPS for
-    the XLA path — 3.7x (round-3 tune sweep; the Gray-Scott analog
-    measured 1.94x)."""
-    if cfg.engine != "auto":
-        if cfg.engine == "pallas" and not pallas_eligible(cfg):
-            raise ValueError(
-                "engine='pallas' requires float32, nx % 128 == 0, "
-                "block_k <= 64 and a row band (16..128) dividing ny "
-                "that fits scoped VMEM")
-        return cfg.engine
-    import jax
-
-    return ("pallas" if (pallas_eligible(cfg)
-                         and jax.default_backend() == "tpu") else "xla")
-
-
 def run(cfg: LBMConfig, s: LBMState, n_steps: int, drive=None) -> LBMState:
     from ..core.stepper import scan_steps
 
-    if resolve_engine(cfg) == "pallas":
-        import jax
-
-        from ..kernels.lbm_pallas import run_multistep
-
-        return run_multistep(cfg, s, n_steps, k=cfg.block_k,
-                             interpret=jax.default_backend() != "tpu",
-                             drive=drive)
     return scan_steps(lambda st: step(cfg, st, drive=drive), s, n_steps)

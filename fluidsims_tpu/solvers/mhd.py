@@ -69,17 +69,12 @@ class MHDConfig(BaseConfig):
     # stable_hll=True switches to the textbook sign.
     stable_hll: bool = False
     dtype: str = "float32"
-    engine: str = "auto"      # auto | xla | pallas (whole-solve VMEM resident)
-    block_k: int = 8          # fused steps per kernel launch (pallas; round-3 tune winner)
 
     def validate(self):
         self._require(self.nx > 4 and self.ny > 4, "grid too small")
         self._require(self.gamma > 1.0, "gamma must be > 1")
         self._require(self.problem in ("briowu", "orszag-tang"),
                       f"unknown problem {self.problem}")
-        self._require(self.engine in ("auto", "xla", "pallas"),
-                      "engine must be auto, xla or pallas")
-        self._require(self.block_k >= 1, "block_k must be >= 1")
 
 
 class MHDState(NamedTuple):
@@ -185,14 +180,14 @@ def _mc(dl, dc, dr):
     return minmod(minmod(dl, dr), minmod(dc, minmod(2.0 * dl, 2.0 * dr)))
 
 
-def _slopes(U: ConsM, dy: int, dx: int, shift=shift_clamped) -> ConsM:
+def _slopes(U: ConsM, dy: int, dx: int) -> ConsM:
     """MC-limited slopes on conserved variables (slope_at/slope_y_at,
     tau_mhd.c:129-142), with edge-clamped neighbors (only interior values
     are consumed)."""
 
     def s(f):
-        fm = shift(f, -dy, -dx)
-        fp = shift(f, dy, dx)
+        fm = shift_clamped(f, -dy, -dx)
+        fp = shift_clamped(f, dy, dx)
         return _mc(f - fm, 0.5 * (fp - fm), fp - f)
 
     return ConsM(*(s(f) for f in U))
@@ -250,16 +245,9 @@ def default_face_masks(nx: int, ny: int):
     return jnp.asarray(mx_face), jnp.asarray(my_face)
 
 
-def step_core(cfg: MHDConfig, U: ConsM, *, shift=shift_clamped,
-              zero_shift_x=_zero_shift_x, zero_shift_y=_zero_shift_y,
-              face_masks=None, dxdy=None, wavespeed_reduce=None):
-    """One MHD+GLM step on the raw conserved fields; returns (Un, dt).
-
-    The single physics source for both engines: the XLA dataflow path
-    (default shift primitives) and the whole-solve VMEM-resident kernel
-    (kernels/mhd_resident_pallas.py), which passes pltpu.roll-based
-    shifts — the kernel's edge-copy padding makes pure rolls reproduce
-    the clamped semantics bitwise on the real region."""
+def step_core(cfg: MHDConfig, U: ConsM, *, face_masks=None, dxdy=None,
+              wavespeed_reduce=None):
+    """One MHD+GLM step on the raw conserved fields; returns (Un, dt)."""
     g = cfg.gamma
     nx, ny = cfg.nx, cfg.ny
     dx, dy = dxdy if dxdy is not None else (1.0 / nx, 1.0 / ny)
@@ -280,24 +268,24 @@ def step_core(cfg: MHDConfig, U: ConsM, *, shift=shift_clamped,
     else:
         mx_face, my_face = face_masks
 
-    Sx = _slopes(U, 0, 1, shift)
+    Sx = _slopes(U, 0, 1)
     qL = _map(lambda u_, sl: u_ + 0.5 * sl, U, Sx)
     qR_all = _map(lambda u_, sl: u_ - 0.5 * sl, U, Sx)
-    qR = ConsM(*(shift(f, 0, 1) for f in qR_all))
+    qR = ConsM(*(shift_clamped(f, 0, 1) for f in qR_all))
     Fx = hlld_glm_flux(qL, qR, g, ch, True, cfg.stable_hll)
     Fx = _map(lambda f: jnp.where(mx_face, f, 0.0), Fx)
 
-    Sy = _slopes(U, 1, 0, shift)
+    Sy = _slopes(U, 1, 0)
     qB = _map(lambda u_, sl: u_ + 0.5 * sl, U, Sy)
     qT_all = _map(lambda u_, sl: u_ - 0.5 * sl, U, Sy)
-    qT = ConsM(*(shift(f, 1, 0) for f in qT_all))
+    qT = ConsM(*(shift_clamped(f, 1, 0) for f in qT_all))
     Fy = hlld_glm_flux(qB, qT, g, ch, False, cfg.stable_hll)
     Fy = _map(lambda f: jnp.where(my_face, f, 0.0), Fy)
 
     # conservative pair update: cell c gets -(Fx[c] - Fx[c-1])*dt/dx etc.
     def upd(u_, fx, fy):
-        return (u_ - (dt / dx) * (fx - zero_shift_x(fx))
-                - (dt / dy) * (fy - zero_shift_y(fy)))
+        return (u_ - (dt / dx) * (fx - _zero_shift_x(fx))
+                - (dt / dy) * (fy - _zero_shift_y(fy)))
 
     Un = _map(upd, U, Fx, Fy)
 
@@ -343,37 +331,7 @@ def view_field(cfg: MHDConfig, s: MHDState, mode: int):
     return div * 0.05
 
 
-def resolve_engine(cfg: MHDConfig) -> str:
-    """'pallas' = the whole-solve VMEM-resident K-step kernel
-    (kernels/mhd_resident_pallas.make_multistep_pallas): at the 320x220
-    reference default the XLA path is bound by per-step pass glue, not by
-    any device resource (BASELINE.md roofline), so running block_k steps
-    per launch with the 2 MB state resident in VMEM is the remaining
-    lever.  Needs f32 and a padded grid <= 2M cells.  'auto' takes it
-    on TPU: measured 29005 steps/s at the 320x220 reference default with
-    k=8 vs 13013 for the XLA path — 2.23x (round-3 tune sweep)."""
-    from ..kernels.mhd_resident_pallas import resident_eligible
-
-    if cfg.engine != "auto":
-        if cfg.engine == "pallas" and not resident_eligible(cfg):
-            raise ValueError(
-                "engine='pallas' requires float32 and a padded grid "
-                "<= 2M cells (whole-solve VMEM residency)")
-        return cfg.engine
-    import jax
-
-    return ("pallas" if (resident_eligible(cfg)
-                         and jax.default_backend() == "tpu") else "xla")
-
-
 def run(cfg: MHDConfig, s: MHDState, n_steps: int) -> MHDState:
     from ..core.stepper import scan_steps
 
-    if resolve_engine(cfg) == "pallas":
-        import jax
-
-        from ..kernels.mhd_resident_pallas import run_multistep
-
-        return run_multistep(cfg, s, n_steps, k=cfg.block_k,
-                             interpret=jax.default_backend() != "tpu")
     return scan_steps(lambda st: step(cfg, st), s, n_steps)

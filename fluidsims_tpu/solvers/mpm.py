@@ -11,9 +11,12 @@ clamped to [0.05, 20], position clamp to [2dx, (G-3)dx] (k_g2p :200-257);
 jittered block init with shear velocity profile (reset_particles :304-320);
 dx = boxX/(Gx-1) (step_mpm :327).
 
-TPU design: P2G's 9-target atomicAdd becomes 9 masked scatter-adds; G2P is
-a pure gather; the 2x2 matrix algebra is elementwise on (np,) component
-arrays (Mat2 struct-of-arrays).
+Design: engine="scatter" (the default) is the reference's formulation — P2G's 9-target
+atomicAdd becomes 9 masked scatter-adds and G2P is a pure gather;
+engine="dense" bins particles into the cell-dense layout
+(ops/cell_dense.py) and does both transfers as dense sums and static
+shifts.  The 2x2 matrix products run at HIGHEST precision, so a float32
+einsum is never lowered to a reduced-precision (TF32) matrix unit.
 """
 
 from __future__ import annotations
@@ -23,12 +26,14 @@ from typing import NamedTuple
 
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 from ..core.config import BaseConfig
 
 __all__ = ["MPMConfig", "MPMState", "MATERIALS", "init", "step", "run"]
 
 MATERIALS = {"mud": 0, "snow": 1, "sand": 2}
+_HIGHEST = lax.Precision.HIGHEST
 
 
 @dataclass(frozen=True)
@@ -49,7 +54,10 @@ class MPMConfig(BaseConfig):
     critical_stretch: float = 7.5e-3
     material: str = "snow"
     seed: int = 2026
-    engine: str = "auto"   # auto | pallas | dense | scatter
+    # scatter = the reference's atomic-add P2G, exact at any occupancy and
+    # on the H100 the faster engine (PERF.md, engine A/B); dense = cell-dense
+    # transfers, which drop particles beyond bin_capacity per cell
+    engine: str = "scatter"
     bin_capacity: int = 0   # 0 = auto (~16x mean occupancy)
     dtype: str = "float32"
 
@@ -57,8 +65,8 @@ class MPMConfig(BaseConfig):
         self._require(self.n > 0, "n must be positive")
         self._require(self.gx >= 8 and self.gy >= 8, "grid too small")
         self._require(self.material in MATERIALS, f"material {self.material}")
-        self._require(self.engine in ("auto", "pallas", "dense", "scatter"),
-                      "unknown engine")
+        self._require(self.engine in ("dense", "scatter"),
+                      "engine must be dense or scatter")
 
     @property
     def capacity(self) -> int:
@@ -157,7 +165,7 @@ def _step_scatter(cfg: MPMConfig, s: MPMState,
         mu = mu * 1.8
         lam = lam * 0.75
 
-    FFt = jnp.einsum("nij,nkj->nik", Fe, Fe)
+    FFt = jnp.einsum("nij,nkj->nik", Fe, Fe, precision=_HIGHEST)
     I = jnp.eye(2, dtype=Fe.dtype)
     PFt = mu[:, None, None] * (FFt - I) \
         + (lam * jnp.log(J) * J)[:, None, None] * I
@@ -231,7 +239,8 @@ def _step_scatter(cfg: MPMConfig, s: MPMState,
             )
 
     oldF = Fe
-    newF = jnp.einsum("nij,njk->nik", I[None, :, :] + dt * C, oldF)
+    newF = jnp.einsum("nij,njk->nik", I[None, :, :] + dt * C, oldF,
+                      precision=_HIGHEST)
     oldJ = jnp.maximum(_det2(oldF), 1.0e-6)
     newJ = jnp.maximum(_det2(newF), 1.0e-6)
     if mat == 0:  # mud relaxes shear
@@ -277,7 +286,7 @@ def _plastic_and_stress(cfg, s):
     elif mat == 2:
         mu = mu * 1.8
         lam = lam * 0.75
-    FFt = jnp.einsum("nij,nkj->nik", Fe, Fe)
+    FFt = jnp.einsum("nij,nkj->nik", Fe, Fe, precision=_HIGHEST)
     I = jnp.eye(2, dtype=Fe.dtype)
     PFt = mu[:, None, None] * (FFt - I) \
         + (lam * jnp.log(J) * J)[:, None, None] * I
@@ -425,29 +434,8 @@ def _step_dense(cfg: MPMConfig, s: MPMState,
     )
 
 
-def resolve_engine(cfg: MPMConfig) -> str:
-    """'auto' resolves to the cell-dense XLA engine: the fused Pallas
-    transfer kernels (kernels/mpm_pallas.py, engine='pallas') measured
-    PARITY with it on chip (11.2 vs 10.6-11.6 M psteps/s) — the step is
-    bound by the per-step binning sort + value scatter, which both
-    engines share, not by the transfer arithmetic the kernels move into
-    VMEM.  Kept selectable as the measured proof of that verdict."""
-    if cfg.engine != "auto":
-        return cfg.engine
-    return "dense"
-
-
 def step(cfg: MPMConfig, s: MPMState, grid_reduce=None) -> MPMState:
-    eng = resolve_engine(cfg)
-    if eng == "pallas":
-        import jax
-
-        from ..kernels.mpm_pallas import make_step_pallas
-
-        return make_step_pallas(
-            cfg, interpret=jax.default_backend() != "tpu")(
-                s, grid_reduce=grid_reduce)
-    if eng == "dense":
+    if cfg.engine == "dense":
         return _step_dense(cfg, s, grid_reduce)
     return _step_scatter(cfg, s, grid_reduce)
 

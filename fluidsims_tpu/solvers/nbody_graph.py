@@ -11,16 +11,15 @@ dt=0.5, root pinned at the origin (:515-539, :469-476); circle /
 Fibonacci-sphere inits of radius 20*sqrt(n) (:356-368,
 number_fluid3d.c:384-404).
 
-TPU design — the two CPU-parallel structures are replaced by their
-TPU-native equivalents:
+Design — the two CPU-parallel structures are replaced by array
+equivalents:
   * per-worker force accumulators merged at integrate (:485-523) become a
     single `segment_sum` over the edge list;
   * the pointer-chasing Barnes–Hut quadtree/octree (:244-354) is not
     ported at all: the DEFAULT engine computes the EXACT all-pairs
     repulsion in chunked dense blocks (_repulsion_exact) — ~150 GFLOP at
-    the reference's 131k bodies, tens of milliseconds on a v5e chip, i.e.
-    the approximation the reference needs on CPU is unnecessary on TPU
-    and the force error is exactly zero (strictly inside any theta MAC).
+    the reference's 131k bodies, which an accelerator affords every step,
+    so the force error is exactly zero (strictly inside any theta MAC).
     engine="grid" keeps the uniform-grid monopole approximation
     (_repulsion_grid) for scales where O(n^2) finally loses.
 """
@@ -79,10 +78,9 @@ class GraphLayoutConfig(BaseConfig):
     grid_res: int = 32             # monopole mesh resolution per axis
     near_field_max: int = 1 << 15  # grid mode: above this, monopole-only
     # repulsion engine: "exact" = chunked all-pairs (O(n^2) but only
-    # ~150 GFLOP at the reference's 131k bodies — comparable wall time to
-    # the grid approximation on a v5e chip and EXACT, i.e. strictly more
-    # accurate than the reference's theta=0.75 Barnes-Hut); "grid" = the
-    # grid-monopole approximation (faster at very large n)
+    # ~150 GFLOP at the reference's 131k bodies, and EXACT, i.e. strictly
+    # more accurate than the reference's theta=0.75 Barnes-Hut); "grid" =
+    # the grid-monopole approximation (for very large n)
     engine: str = "exact"
     chunk: int = 1024              # bodies per all-pairs chunk
     dtype: str = "float32"
@@ -107,7 +105,7 @@ class GraphLayoutState(NamedTuple):
 
 
 def init_arrays(cfg: GraphLayoutConfig):
-    """NumPy (pos, vel, edges) for init — shared by the TPU state builder
+    """NumPy (pos, vel, edges) for init — shared by the JAX state builder
     and the native engine (which must not touch the device)."""
     n = cfg.n_bodies
     radius = math.sqrt(n) * 20.0
@@ -151,8 +149,8 @@ def _spring_forces(cfg, pos, edges):
     (parallel/nbody_sharded.py) calls this on its per-device edge shard
     and psums.  The single-chip step uses _spring_forces_static instead:
     the graph is static, so its sorted incidence can be baked in at trace
-    time and the two 17 ms scatter-adds per step (measured on v5e —
-    ~13 ns per scattered row) become one sorted segment_sum."""
+    time and the two scatter-adds per step become one sorted
+    segment_sum."""
     src = edges[:, 0]
     dst = edges[:, 1]
     d = pos[dst] - pos[src]
@@ -211,9 +209,9 @@ def _repulsion_exact(cfg, pos, rows=None):
 
     The reference uses a theta=0.75 Barnes-Hut tree because its CPU cannot
     afford O(n^2) (number_fluid2d.c:386-438); at 131k bodies the full
-    pairwise sum is ~150 GFLOP of pure VPU arithmetic — tens of
-    milliseconds on one v5e chip, so the TPU-native engine simply computes
-    the true force (error 0, strictly tighter than any MAC).  The explicit
+    pairwise sum is ~150 GFLOP of elementwise arithmetic, so this engine
+    simply computes the true force (error 0, strictly tighter than any
+    MAC).  The explicit
     difference formulation (not the |a|^2+|b|^2-2ab matmul identity) avoids
     catastrophic f32 cancellation for near pairs at 7e3-scale coordinates.
 
@@ -249,7 +247,7 @@ def _repulsion_exact(cfg, pos, rows=None):
 
 def _repulsion_grid(cfg, pos):
     """Grid-monopole repulsion: exact near field over 3^d neighbor cells +
-    cell-COM monopole far field (TPU replacement of
+    cell-COM monopole far field (array replacement of
     apply_repulsion_from_tree, number_fluid2d.c:386-438)."""
     n, dims = pos.shape
     G = cfg.grid_res
@@ -274,8 +272,7 @@ def _repulsion_grid(cfg, pos):
 
     # far field: monopole force from every cell, chunked over bodies so
     # the (chunk, M, dims) intermediate stays bounded (the unchunked
-    # (n, M, dims) product is >1 GB at the reference's 131k bodies and
-    # crashes the TPU compile)
+    # (n, M, dims) product is >1 GB at the reference's 131k bodies)
     CH = min(n, 4096)
     n_pad = -(-n // CH) * CH
     posp = jnp.pad(pos, ((0, n_pad - n), (0, 0)))

@@ -25,7 +25,7 @@ from ..core.config import BaseConfig
 from ..ops.shift import shift_wrapped
 
 __all__ = ["ShallowWaterConfig", "ShallowWaterState", "init", "step",
-           "step_fields", "run", "depth", "resolve_engine"]
+           "step_fields", "run", "depth"]
 
 H_EPS = 1e-6  # depth positivity floor (update_kernel :509)
 
@@ -52,17 +52,12 @@ class ShallowWaterConfig(BaseConfig):
     t0: float = 1.0
     dtau: float = 1.0
     dtype: str = "float32"
-    engine: str = "auto"     # auto | xla | pallas (whole-solve VMEM resident)
-    block_k: int = 8         # fused steps per kernel launch (pallas; round-3 tune winner)
 
     def validate(self):
         self._require(self.nx > 0 and self.ny > 0, "grid dims must be positive")
         self._require(self.g > 0, "g must be > 0")
         self._require(self.H0 > 0, "H0 must be > 0")
         self._require(self.cfl > 0, "CFL must be > 0")
-        self._require(self.engine in ("auto", "xla", "pallas"),
-                      "engine must be auto, xla or pallas")
-        self._require(self.block_k >= 1, "block_k must be >= 1")
 
 
 class ShallowWaterState(NamedTuple):
@@ -144,14 +139,12 @@ def _hll(hL, uL, vL, hR, uR, vR, g, axis):
 
 
 def step_fields(cfg: ShallowWaterConfig, sigma, u, v, t,
-                shift=shift_wrapped, wavespeed_reduce=None):
+                wavespeed_reduce=None):
     """One step on the raw (sigma, u, v) fields; returns (sigma2, u2, v2).
 
-    `shift` is the periodic 2-D shift primitive — shift_wrapped for the
-    XLA path, a pltpu.roll-based equivalent inside the resident Pallas
-    kernel (kernels/sw_resident_pallas.py) — so both engines share this
-    one physics source.  `wavespeed_reduce` (e.g. lax.pmax over a mesh
-    axis) extends the CFL max across devices for the sharded path."""
+    `wavespeed_reduce` (e.g. lax.pmax over a mesh axis) extends the CFL
+    max across devices for the sharded path."""
+    shift = shift_wrapped
     h = jnp.exp(sigma)
     c = jnp.sqrt(cfg.g * h)
     cmax = jnp.max(jnp.maximum(jnp.abs(u) + c, jnp.abs(v) + c))
@@ -214,37 +207,7 @@ def step(cfg: ShallowWaterConfig, s: ShallowWaterState,
     )
 
 
-def resolve_engine(cfg: ShallowWaterConfig) -> str:
-    """'pallas' = the whole-solve VMEM-resident K-step kernel
-    (kernels/sw_resident_pallas.make_multistep_pallas): the XLA path sits
-    at no single bound (~30% HBM, ~30% issue — BASELINE.md roofline), so
-    running block_k steps per launch with the state resident in VMEM
-    removes the per-step intermediate traffic and glue.  Needs f32,
-    nx % 128 == 0 and nx*ny <= 2M cells.  'auto' takes it on TPU:
-    measured 43414 steps/s at the 512^2 reference default with k=8 vs
-    26771 for the XLA path — 1.62x (round-3 tune sweep)."""
-    from ..kernels.sw_resident_pallas import resident_eligible
-
-    if cfg.engine != "auto":
-        if cfg.engine == "pallas" and not resident_eligible(cfg):
-            raise ValueError(
-                "engine='pallas' requires float32, nx % 128 == 0 and "
-                "nx*ny <= 2M cells (whole-solve VMEM residency)")
-        return cfg.engine
-    import jax
-
-    return ("pallas" if (resident_eligible(cfg)
-                         and jax.default_backend() == "tpu") else "xla")
-
-
 def run(cfg: ShallowWaterConfig, s: ShallowWaterState, n_steps: int):
     from ..core.stepper import scan_steps
 
-    if resolve_engine(cfg) == "pallas":
-        import jax
-
-        from ..kernels.sw_resident_pallas import run_multistep
-
-        return run_multistep(cfg, s, n_steps, k=cfg.block_k,
-                             interpret=jax.default_backend() != "tpu")
     return scan_steps(lambda st: step(cfg, st), s, n_steps)

@@ -13,16 +13,12 @@ Behavioral spec: js_cuda.cu — 512² double-precision solver with:
     (k_decay :49-54, k_add_source :126-140), initial swirl seed (k_seed :56-68)
   * a zero halo ring (the (N+2)² padding is memset once and never written).
 
-TPU design: fields are stored as interior (N, N) arrays; the zero ring is
+Design: fields are stored as interior (N, N) arrays; the zero ring is
 realized by jnp.pad at use sites.  The Jacobi loop is a lax.fori_loop; the
-bilinear back-trace has three engines (resolve_engine): 'xla' uses
-flattened 1-D gathers (ops/gather.py, exact), 'pallas' the banded VMEM
-advection kernel (kernels/stam2d_pallas.py, ~22x, clamps + counts
-backtraces beyond advect_band rows), and 'hybrid' (the TPU default) the
-banded kernel plus a dynamic exact-gather window over the out-of-band
-cluster (_repair_overflow) — never clamps, ~17x.  Everything under one
-jit.  Default dtype float32 (the reference is f64; dtype="float64"
-matches it exactly under x64).
+bilinear back-trace is the reference's exact per-cell gather, on
+flattened 1-D indices (ops/gather.py).  Everything under one jit.
+Default dtype float32 (the reference is f64; dtype="float64" matches it
+exactly under x64).
 """
 
 from __future__ import annotations
@@ -36,8 +32,7 @@ from jax import lax
 
 from ..core.config import BaseConfig
 
-__all__ = ["Stam2DConfig", "Stam2DState", "init", "step", "run",
-           "resolve_engine", "advect_overflow_count"]
+__all__ = ["Stam2DConfig", "Stam2DState", "init", "step", "run"]
 
 
 @dataclass(frozen=True)
@@ -52,31 +47,10 @@ class Stam2DConfig(BaseConfig):
     eta_min: float = -1.5
     eta_max: float = 1.5
     jacobi_iters: int = 40
-    # pallas advection: row-displacement band in cells; backtraces farther
-    # than this are clamped to the band edge and counted
-    # (advect_overflow_count) — the kernels/stam2d_pallas.py contract
+    # x-slab sharded runner (parallel/stam2d_sharded.py): advection ghost
+    # columns per shard; backtraces farther than this are clamped to the halo edge and
+    # counted in state.ovf
     advect_band: int = 16
-    # hybrid repair-window side length in cells: measured on the
-    # reference default, the orbiting source drives 25-70 cells/frame
-    # past band 16 FOREVER (not just the seed transient, whose first
-    # ~50 frames clamp ~72k cells/frame) — so "switch engines once the
-    # transient settles" never fires.  The out-of-band cells cluster
-    # around the source (within +-21 rows / +-16 cols of its center,
-    # measured over 300 steps), so the hybrid overwrites one
-    # dynamically-placed window of this size with the exact gather each
-    # advection; frames whose out-of-band bounding box exceeds the
-    # window fall back to the full exact gather.  64 covers the
-    # reference default with ~1.5x margin; gather cost scales with the
-    # window area (~140 M gathered elem/s in-context on v5e), so keep
-    # it as small as the flow allows.
-    repair_window: int = 64
-    # auto | hybrid | pallas | xla.  'hybrid' (the TPU default) never
-    # clamps: the banded VMEM kernel + a window exact repair over the
-    # out-of-band cluster when its bounding box fits repair_window, the
-    # full exact XLA gather otherwise (the seed transient).  'pallas'
-    # forces the banded kernel alone (clamps + counts), 'xla' the exact
-    # gather everywhere.
-    engine: str = "auto"
     dtype: str = "float32"
 
     def validate(self):
@@ -85,10 +59,6 @@ class Stam2DConfig(BaseConfig):
         self._require(self.eta_max > self.eta_min, "eta range must be nonempty")
         self._require(1 <= self.advect_band <= 128,
                       "advect_band must be in [1, 128]")
-        self._require(self.repair_window >= 1,
-                      "repair_window must be >= 1")
-        self._require(self.engine in ("auto", "hybrid", "pallas", "xla"),
-                      "engine must be auto, hybrid, pallas or xla")
 
 
 class Stam2DState(NamedTuple):
@@ -99,8 +69,8 @@ class Stam2DState(NamedTuple):
     d: jnp.ndarray   # of d_u0/d_v0/d_d0 buffers)
     d0: jnp.ndarray
     step_idx: jnp.ndarray  # drives the orbiting source phase
-    ovf: jnp.ndarray  # cumulative cells clamped by the pallas advect_band
-    #                   across ALL frames so far (0 on the exact xla path)
+    ovf: jnp.ndarray  # cumulative cells clamped by the sharded runner's
+    #                   advect_band across ALL frames (0 on one device)
 
 
 def _eta(cfg, idx):
@@ -214,108 +184,6 @@ def _advect(cfg, q0, uu, vv):
     return _bilinear(qp, i0, j0, s1, t1)
 
 
-def _repair_overflow(cfg, qs_banded, qs_src, uu, vv):
-    """Window exact repair for the banded kernel: find the bounding box
-    of every cell whose backtrace row displacement exceeds the band
-    (only rows are banded — the kernel's column fetch is an exact
-    full-range lane gather), center a static-shape repair_window on it,
-    and overwrite the whole window with the exact bilinear gather.
-    Returns (repaired_fields, in_window) — the caller lax.conds to the
-    full exact gather when the box does not fit the window.
-
-    Why a dense window and not a sparse cell list: every sparse
-    selection was measured slower IN CONTEXT on v5e than its
-    microbenchmark suggests — lax.top_k lowers to two full 262k-element
-    sorts per step (~220 us each), jnp.flatnonzero's cumsum and a
-    hand-rolled prefix-sum compaction both stall the step worse than
-    the sort, and the M-element gathers/scatter with data-dependent
-    indices cost ~0.5 ms each once embedded in the step (vs ~20 us
-    standalone).  The window needs no selection at all: two reductions
-    for the box, dynamic_slice of the coord grids (static shapes), the
-    same exact gather the XLA engine uses but on window_sized arrays,
-    and one dynamic_update_slice — no sort, no scatter, no
-    data-dependent index vectors.  In-band window cells are overwritten
-    with their exact values too, which only moves them ~1e-5 (same
-    corners/weights as the kernel, different blend association)."""
-    n = cfg.n
-    H = W = min(cfg.repair_window, n)
-    i0, j0, s1, t1 = _backtrace_coords(cfg, uu, vv)
-    row = jnp.arange(n, dtype=jnp.int32)[:, None]
-    over = jnp.abs(j0 - 1 - row) > cfg.advect_band  # kernel's disp conv
-    ri = jnp.arange(n, dtype=jnp.int32)
-    over_r = jnp.any(over, axis=1)
-    over_c = jnp.any(over, axis=0)
-    rmin = jnp.min(jnp.where(over_r, ri, n))
-    rmax = jnp.max(jnp.where(over_r, ri, -1))
-    cmin = jnp.min(jnp.where(over_c, ri, n))
-    cmax = jnp.max(jnp.where(over_c, ri, -1))
-    r0 = jnp.clip((rmin + rmax + 1) // 2 - H // 2, 0, n - H)
-    c0 = jnp.clip((cmin + cmax + 1) // 2 - W // 2, 0, n - W)
-    # True also when no cell is out of band (empty box: rmin=n, rmax=-1)
-    # — the window then just rewrites exact values over in-band cells.
-    ok = (rmin >= r0) & (rmax < r0 + H) & (cmin >= c0) & (cmax < c0 + W)
-
-    def sl(a):
-        return lax.dynamic_slice(a, (r0, c0), (H, W))
-
-    i0w, j0w, s1w, t1w = sl(i0), sl(j0), sl(s1), sl(t1)
-    out = []
-    for qb, q0 in zip(qs_banded, qs_src):
-        win = _bilinear(jnp.pad(q0, 1), i0w, j0w, s1w, t1w)
-        out.append(lax.dynamic_update_slice(qb, win, (r0, c0)))
-    return tuple(out), ok
-
-
-def _backtrace_coords_window(cfg, uu, vv, r0, c0, H, W):
-    """`_backtrace_coords` restricted to the (H, W) window at (r0, c0)
-    (dynamic offsets): identical expressions on dynamic slices of the
-    identical inputs, so every window value is bitwise the full-grid
-    one's — the repair stays bitwise-equal to the exact path."""
-    n = cfg.n
-    deta = (cfg.eta_max - cfg.eta_min) / n
-    idx = jnp.arange(1, n + 1, dtype=uu.dtype)
-    eta = cfg.eta_min + (idx - 0.5) * deta
-    xp_f = cfg.x0 * jnp.exp(eta)
-    yp_f = cfg.y0 * jnp.exp(eta)
-    eta_c = lax.dynamic_slice(eta, (c0,), (W,))
-    eta_r = lax.dynamic_slice(eta, (r0,), (H,))
-    xp = lax.dynamic_slice(xp_f, (c0,), (W,))[None, :]
-    yp = lax.dynamic_slice(yp_f, (r0,), (H,))[:, None]
-    uw = lax.dynamic_slice(uu, (r0, c0), (H, W))
-    vw = lax.dynamic_slice(vv, (r0, c0), (H, W))
-
-    bx = eta_c[None, :] - cfg.dt * uw / xp
-    by = eta_r[:, None] - cfg.dt * vw / yp
-    sarr = jnp.clip((bx - cfg.eta_min) / deta + 0.5, 0.5, n + 0.5)
-    tarr = jnp.clip((by - cfg.eta_min) / deta + 0.5, 0.5, n + 0.5)
-    i0 = jnp.floor(sarr).astype(jnp.int32)
-    j0 = jnp.floor(tarr).astype(jnp.int32)
-    return i0, j0, sarr - i0, tarr - j0
-
-
-def _repair_overflow_from_box(cfg, qs_banded, qs_src, uu, vv, box):
-    """`_repair_overflow` with the out-of-band bounding box supplied by
-    the banded kernel (make_advect_pallas with_box=True) instead of
-    recomputed: the XLA glue shrinks to scalar box math, window-sized
-    coordinate recompute, the window gather, and the update — no
-    full-grid elementwise pass or reductions (the round-4 hybrid paid
-    ~25% of the step for those, VERDICT r4 weak #3)."""
-    n = cfg.n
-    H = W = min(cfg.repair_window, n)
-    rmin, rmax, cmin, cmax = box[0], box[1], box[2], box[3]
-    r0 = jnp.clip((rmin + rmax + 1) // 2 - H // 2, 0, n - H)
-    c0 = jnp.clip((cmin + cmax + 1) // 2 - W // 2, 0, n - W)
-    # True also when no cell is out of band (empty box: rmin=n, rmax=-1)
-    ok = (rmin >= r0) & (rmax < r0 + H) & (cmin >= c0) & (cmax < c0 + W)
-
-    i0w, j0w, s1w, t1w = _backtrace_coords_window(cfg, uu, vv, r0, c0, H, W)
-    out = []
-    for qb, q0 in zip(qs_banded, qs_src):
-        win = _bilinear(jnp.pad(q0, 1), i0w, j0w, s1w, t1w)
-        out.append(lax.dynamic_update_slice(qb, win, (r0, c0)))
-    return tuple(out), ok
-
-
 def _project(cfg, uu, vv, dx_w, dy_w, lin_solve=None):
     """Divergence -> 40-iter Jacobi Poisson (from p=0) -> gradient subtract
     (k_div/k_proj + lin_solve, js_cuda.cu:105-124,170-181).  The reference
@@ -365,134 +233,17 @@ def _add_source(cfg, u, v, d, step_idx):
     return u, v, d
 
 
-def resolve_engine(cfg: Stam2DConfig) -> str:
-    """Static engine choice: the exact-by-default hybrid (banded VMEM
-    advection kernel with a per-frame lax.cond fallback to the exact
-    gather on band overflow) when eligible on TPU, XLA otherwise."""
-    if cfg.engine == "xla":
-        return "xla"
-    eligible = cfg.dtype == "float32" and cfg.n % 128 == 0
-    if cfg.engine in ("pallas", "hybrid"):
-        if not eligible:
-            raise ValueError(
-                f"engine='{cfg.engine}' requires float32 and n % 128 == 0")
-        return cfg.engine
-    import jax
-
-    return "hybrid" if (eligible and jax.default_backend() == "tpu") else "xla"
-
-
-def _row_overflow_any(cfg: Stam2DConfig, vv, band: int | None = None):
-    """True when any backtrace row displacement for velocity field `vv`
-    exceeds `band` (default advect_band) — i.e. a kernel with that band
-    would clamp this frame (same displacement convention as
-    kernels/stam2d_pallas.py)."""
-    n = cfg.n
-    deta = (cfg.eta_max - cfg.eta_min) / n
-    idx = jnp.arange(1, n + 1, dtype=vv.dtype)
-    eta = cfg.eta_min + (idx - 0.5) * deta
-    yp = cfg.y0 * jnp.exp(eta)[:, None]
-    by = eta[:, None] - cfg.dt * vv / yp
-    tarr = jnp.clip((by - cfg.eta_min) / deta + 0.5, 0.5, n + 0.5)
-    disp = jnp.floor(tarr) - idx[:, None]
-    return jnp.any(jnp.abs(disp) > (cfg.advect_band if band is None
-                                    else band))
-
-
-def advect_overflow_count(cfg: Stam2DConfig, s: Stam2DState):
-    """Cells whose backtrace row displacement exceeds advect_band in the
-    frame's advections (velocity advect uses u0/v0, density advect uses
-    u/v) — i.e. where the pallas band deviates from the exact gather.
-    Zero means the frame's pallas advection was exact.  Diagnostic; the
-    CLI warns when nonzero."""
-    n = cfg.n
-    deta = (cfg.eta_max - cfg.eta_min) / n
-    idx = jnp.arange(1, n + 1, dtype=s.u.dtype)
-    eta = cfg.eta_min + (idx - 0.5) * deta
-    yp = cfg.y0 * jnp.exp(eta)[:, None]
-    over = jnp.zeros((n, n), bool)
-    for vv in (s.v0, s.v):
-        by = eta[:, None] - cfg.dt * vv / yp
-        tarr = jnp.clip((by - cfg.eta_min) / deta + 0.5, 0.5, n + 0.5)
-        disp = jnp.floor(tarr) - idx[:, None]
-        over = over | (jnp.abs(disp) > cfg.advect_band)
-    return jnp.sum(over)
-
-
 def step(cfg: Stam2DConfig, s: Stam2DState) -> Stam2DState:
     """One frame: decay -> source -> vel_step -> dens_step
     (main loop, js_cuda.cu:361-368)."""
     dx_w = jnp.asarray(_cell_widths(cfg), cfg.jax_dtype)
     dy_w = dx_w
 
-    engine = resolve_engine(cfg)
-    if engine in ("pallas", "hybrid"):
-        import jax
+    def advect_pair(qa, qb, uu, vv):
+        return _advect(cfg, qa, uu, vv), _advect(cfg, qb, uu, vv)
 
-        from ..kernels.stam2d_pallas import (make_advect_pallas,
-                                             make_lin_solve_pallas)
-
-        interp = jax.default_backend() != "tpu"
-        # accumulate each advection's band-overflow count so mid-run
-        # clamping is visible in the final state (state.ovf), not just
-        # on the last frame
-        frame_ovf = [jnp.asarray(0, jnp.int32)]
-
-        if engine == "hybrid":
-            # never-clamped: banded kernel + window exact repair around
-            # the out-of-band cluster; full exact gather only when the
-            # cluster's bounding box exceeds the window (the seed
-            # transient).  No tier leaves a clamped cell behind, so
-            # state.ovf stays 0.  The kernel emits the out-of-band
-            # bounding box (with_box), so the repair's XLA glue is
-            # window-sized.
-            adv = make_advect_pallas(cfg, interpret=interp, with_box=True)
-            adv2 = make_advect_pallas(cfg, interpret=interp, n_fields=2,
-                                      with_box=True)
-
-            def advect(q0, uu, vv):
-                qk, _, box = adv(q0, uu, vv)
-                (qb,), ok = _repair_overflow_from_box(
-                    cfg, (qk,), (q0,), uu, vv, box)
-                return lax.cond(
-                    ok,
-                    lambda q, u, v: qb,
-                    lambda q, u, v: _advect(cfg, q, u, v),
-                    q0, uu, vv)
-
-            def advect_pair(qa, qb, uu, vv):
-                ra, rb, _, box = adv2(qa, qb, uu, vv)
-                (ra, rb), ok = _repair_overflow_from_box(
-                    cfg, (ra, rb), (qa, qb), uu, vv, box)
-                return lax.cond(
-                    ok,
-                    lambda a, b, u, v: (ra, rb),
-                    lambda a, b, u, v: (_advect(cfg, a, u, v),
-                                        _advect(cfg, b, u, v)),
-                    qa, qb, uu, vv)
-        else:
-            adv = make_advect_pallas(cfg, interpret=interp)
-            adv2 = make_advect_pallas(cfg, interpret=interp, n_fields=2)
-
-            def advect(q0, uu, vv):
-                q, o = adv(q0, uu, vv)
-                frame_ovf[0] = frame_ovf[0] + o.astype(jnp.int32)
-                return q
-
-            def advect_pair(qa, qb, uu, vv):
-                ra, rb, o = adv2(qa, qb, uu, vv)
-                frame_ovf[0] = frame_ovf[0] + o.astype(jnp.int32)
-                return ra, rb
-
-        solve = make_lin_solve_pallas(cfg.n, cfg.jacobi_iters,
-                                      cfg.jax_dtype, interpret=interp)
-        lin_solve = lambda x, b, a, c: solve(x, b, a, c)  # noqa: E731
-    else:
-        frame_ovf = [jnp.asarray(0, jnp.int32)]  # xla gather is exact
-        advect = lambda q0, uu, vv: _advect(cfg, q0, uu, vv)  # noqa: E731
-        advect_pair = lambda qa, qb, uu, vv: (  # noqa: E731
-            _advect(cfg, qa, uu, vv), _advect(cfg, qb, uu, vv))
-        lin_solve = lambda x, b, a, c: _lin_solve(cfg, x, b, a, c)  # noqa: E731
+    def lin_solve(x, b, a, c):
+        return _lin_solve(cfg, x, b, a, c)
 
     def diffuse(x, x0, coeff):
         a = cfg.dt * coeff * cfg.n * cfg.n
@@ -510,11 +261,10 @@ def step(cfg: Stam2DConfig, s: Stam2DState) -> Stam2DState:
 
     # dens_step (js_cuda.cu:184-191)
     d0 = diffuse(s.d0, d, cfg.diff)
-    d = advect(d0, u, v)
+    d = _advect(cfg, d0, u, v)
 
     return Stam2DState(u=u, v=v, u0=u0, v0=v0, d=d, d0=d0,
-                       step_idx=s.step_idx + 1,
-                       ovf=s.ovf + frame_ovf[0])
+                       step_idx=s.step_idx + 1, ovf=s.ovf)
 
 
 def run(cfg: Stam2DConfig, s: Stam2DState, n_steps: int) -> Stam2DState:

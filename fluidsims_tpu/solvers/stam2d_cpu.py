@@ -9,7 +9,7 @@ Gauss–Seidel iterations with `bnd` reflections after every sweep (lin
 
 This is a NumPy implementation (Gauss–Seidel is inherently sequential — it
 is the CPU reference, mirroring the reference repo where sim.c is the
-scalar oracle for js_cuda.cu). Use small n; the TPU path is stam2d.py.
+scalar oracle for js_cuda.cu). Use small n; the JAX path is stam2d.py.
 """
 
 from __future__ import annotations

@@ -12,17 +12,15 @@ k_add_source3d :99-117); ABC-flow + xorshift-noise turbulence seed
 additive splatting with tone-map 1-exp(-gain*a) and gamma
 (k_iso_accumulate :239-273, k_finalize_screen :275-295).
 
-TPU design: state carries the full (N+2)^3 arrays including ghost rings so
+Design: state carries the full (N+2)^3 arrays including ghost rings so
 set_bnd's buffer-state semantics (stale rings during Jacobi) are replicated
 exactly; interior updates are static slice writes; the iso splat's
 atomicAdd becomes a 4-corner scatter-add.
 
-Two engines (resolve_engine): 'xla' is the dataflow path here; 'pallas'
-(kernels/stam3d_pallas.py) fuses the Jacobi chains, advection and set_bnd
-in VMEM — 31.4 steps/s at 192^3 on one v5e chip vs 4.5 (XLA dense
-advection) / 0.4 (XLA exact gather).  The dense-shift advection default
-(advect_k=2) is exact while no backtrace exceeds K cells;
-`advect_capped_count` reports violations (the CLI prints a warning).
+Advection has two forms: advect_k=0 is the reference's exact per-cell
+trilinear gather; advect_k=K >= 1 is a dense shift form that is exact
+while no backtrace exceeds K cells; `advect_capped_count` reports
+violations (the CLI prints a warning).
 """
 
 from __future__ import annotations
@@ -37,7 +35,7 @@ from jax import lax
 from ..core.config import BaseConfig
 
 __all__ = ["Stam3DConfig", "Stam3DState", "init", "step", "run",
-           "resolve_engine", "advect_capped_count", "iso_render"]
+           "advect_capped_count", "iso_render"]
 
 
 @dataclass(frozen=True)
@@ -56,21 +54,18 @@ class Stam3DConfig(BaseConfig):
     jacobi_iters: int = 12
     seed: int = 1337
     # semi-Lagrangian advection kernel: 0 = exact per-cell gather
-    # (k_adv3d semantics, TPU-gather-bound: ~0.4 steps/s at 192^3);
-    # K >= 1 = dense shift form, exact for backtrace displacements <= K
-    # cells (farther backtraces are capped at K; `advect_capped_count`
-    # reports how many cells were capped) and 10-80x faster on TPU.
-    # The default K=2 is uncapped for this solver's flows in practice.
-    advect_k: int = 2
-    engine: str = "auto"   # auto | pallas | xla
+    # (k_adv3d semantics, the default: exact, and on the H100 faster than
+    # the shift form — PERF.md, engine A/B); K >= 1 = dense shift form,
+    # exact for backtrace displacements <= K cells (farther backtraces are
+    # capped at K; `advect_capped_count` reports how many cells were
+    # capped).
+    advect_k: int = 0
     dtype: str = "float32"
 
     def validate(self):
         self._require(self.n >= 8, "n must be >= 8")
         self._require(self.jacobi_iters > 0, "jacobi_iters must be positive")
         self._require(0 <= self.advect_k <= 8, "advect_k must be in [0, 8]")
-        self._require(self.engine in ("auto", "pallas", "xla"),
-                      "engine must be auto, pallas or xla")
 
 
 class Stam3DState(NamedTuple):
@@ -175,8 +170,7 @@ def _advect_dense(cfg, q0, u, v, w):
     (Offset K+1 is never needed: with d = clip(x - base, -K, K) the hat
     weight max(0, 1 - |d - (K+1)|) is identically zero, including the
     d == K cap where it is exactly 0 — so offsets -K..K suffice.)
-    Replaces 8 per-cell gathers (~40-90 M elem/s on TPU) with fused
-    VPU shift-multiply-adds."""
+    Replaces 8 per-cell gathers with fused shift-multiply-adds."""
     n = cfg.n
     K = cfg.advect_k
     dt_ = cfg.dt
@@ -385,35 +379,6 @@ def _add_source(cfg, u, v, w, d, step_idx):
     return u, v, w, d
 
 
-def resolve_engine(cfg: Stam3DConfig) -> str:
-    """Static engine choice: the fused Pallas kernels
-    (kernels/stam3d_pallas.py) when eligible on TPU, XLA otherwise.
-    Pallas requires f32, dense advection (advect_k >= 1), jacobi_iters
-    divisible by the fused pass size, and band-aligned n."""
-    from ..kernels import stam3d_pallas as sp
-
-    if cfg.engine == "xla":
-        return "xla"
-    eligible = (
-        cfg.dtype == "float32"
-        and cfg.advect_k >= 1
-        and cfg.jacobi_iters % sp._IP == 0
-        and cfg.jacobi_iters % 2 == 0
-        and cfg.n % sp._JB == 0
-        and cfg.n % sp._AB == 0
-    )
-    if cfg.engine == "pallas":
-        if not eligible:
-            raise ValueError(
-                "engine='pallas' requires f32, advect_k>=1, even "
-                f"jacobi_iters divisible by {sp._IP}, and n divisible by "
-                f"{sp._JB} and {sp._AB}")
-        return "pallas"
-    import jax
-
-    return "pallas" if (eligible and jax.default_backend() == "tpu") else "xla"
-
-
 def advect_capped_count(cfg: Stam3DConfig, s: Stam3DState):
     """Cells whose backtrace displacement exceeds advect_k on any axis —
     i.e. where the dense advection deviates from the exact gather path.
@@ -435,19 +400,7 @@ def advect_capped_count(cfg: Stam3DConfig, s: Stam3DState):
 
 
 def step(cfg: Stam3DConfig, s: Stam3DState) -> Stam3DState:
-    """One frame step, on the engine picked by `resolve_engine`."""
-    if resolve_engine(cfg) == "pallas":
-        import jax
-
-        from ..kernels.stam3d_pallas import make_step_pallas
-
-        return make_step_pallas(
-            cfg, interpret=jax.default_backend() != "tpu")(s)
-    return _step_xla(cfg, s)
-
-
-def _step_xla(cfg: Stam3DConfig, s: Stam3DState) -> Stam3DState:
-    """decay -> source -> vel_step -> dens_step with the reference's exact
+    """One frame: decay -> source -> vel_step -> dens_step with the reference's exact
     set_bnd placement (js_cuda3d.cu:333-363, main loop :629-700)."""
     u, v, w = s.u, s.v, s.w
     u0, v0, w0 = s.u0, s.v0, s.w0

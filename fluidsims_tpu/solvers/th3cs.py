@@ -21,32 +21,17 @@ from . import hypersonic3d as h3
 __all__ = ["export_4spl", "export_4spl_streamed", "stream_frames"]
 
 
-def _make_frame_fn(cfg, steps_per_frame: int, impl: str):
+def _make_frame_fn(cfg, steps_per_frame: int):
     """Build the per-frame fused dispatch: steps -> schlieren -> on-device
     gamma-0.65 quantization; only uint8 indices cross the host link."""
+    from ..core.stepper import scan_steps
 
-    def make(step_once):
-        from ..core.stepper import scan_steps
+    def frame_fn(s):
+        s2 = scan_steps(lambda st: h3.step(cfg, st), s, steps_per_frame)
+        vol = h3.vis_field(cfg, s2, "schlieren")
+        return s2, fourspl.quantize_frame_device(vol, gamma=0.65)
 
-        def frame_fn(s):
-            s2 = scan_steps(step_once, s, steps_per_frame)
-            vol = h3.vis_field(cfg, s2, "schlieren")
-            return s2, fourspl.quantize_frame_device(vol, gamma=0.65)
-
-        return jax.jit(frame_fn)
-
-    state = h3.init(cfg)
-    if impl in ("pallas", "auto"):
-        try:
-            from ..kernels import hypersonic3d_pallas as hp3
-
-            frame_fn = make(hp3.make_step_pallas(cfg))
-            jax.block_until_ready(frame_fn(state)[1])
-            return frame_fn
-        except Exception:
-            if impl == "pallas":
-                raise
-    return make(lambda s: h3.step(cfg, s))
+    return jax.jit(frame_fn)
 
 
 def export_4spl(
@@ -57,18 +42,15 @@ def export_4spl(
     p_size: int = 256,
     use_native: bool = True,
     verbose: bool = False,
-    impl: str = "auto",
 ) -> fourspl.Splat4DVideo:
-    """Run the 3-D solver and export the schlieren volume video.
-    `impl`: 'pallas' (fused kernel), 'xla', or 'auto' (pallas with XLA
-    fallback)."""
+    """Run the 3-D solver and export the schlieren volume video."""
     cfg = cfg or h3.default_config()
     state = h3.init(cfg)
 
     # one fused dispatch per frame; a small window of frames stays in
     # flight so transfers overlap compute (the reference's
     # one-readback-per-frame discipline, made async)
-    frame_fn = _make_frame_fn(cfg, steps_per_frame, impl)
+    frame_fn = _make_frame_fn(cfg, steps_per_frame)
 
     # bounded dispatch window: keep a few frames in flight so host
     # transfers overlap device compute, without pinning every quantized
@@ -110,7 +92,6 @@ def export_4spl_streamed(
     steps_per_frame: int = 4,
     p_size: int = 256,
     verbose: bool = False,
-    impl: str = "auto",
     on_frame=None,
 ) -> None:
     """Run the 3-D solver and stream the schlieren video: each frame is
@@ -124,7 +105,7 @@ def export_4spl_streamed(
 
     cfg = cfg or h3.default_config()
     state = h3.init(cfg)
-    frame_fn = _make_frame_fn(cfg, steps_per_frame, impl)
+    frame_fn = _make_frame_fn(cfg, steps_per_frame)
 
     with Stream4splWriter(path, cfg.nx, cfg.ny, cfg.nz,
                           fourspl.heat_palette(p_size)) as wtr:

@@ -4,6 +4,7 @@ Stam stable fluids."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from fluidsims_tpu.solvers import burgers as bg
 from fluidsims_tpu.solvers import shallow_water as sw
@@ -197,71 +198,28 @@ def test_stam2d_matches_loop_oracle_f64():
         assert np.abs(got - ref[1:-1, 1:-1]).max() < 1e-12, name
 
 
-def test_sw_resident_multistep_matches_xla():
-    """The whole-solve VMEM-resident K-step kernel
-    (kernels/sw_resident_pallas.make_multistep_pallas) reproduces the XLA
-    path to f32 transcendental/FMA ulps — the per-step global CFL max,
-    the t/tau clock carry, and a non-multiple remainder included."""
-    from fluidsims_tpu.kernels.sw_resident_pallas import run_multistep
-
-    cfg = sw.ShallowWaterConfig(nx=128, ny=96, dtau=1e-3)
-    s = sw.init(cfg)
-    ref = s
-    for _ in range(11):
-        ref = sw.step(cfg, ref)
-    out = run_multistep(cfg, s, 11, k=4, interpret=True)
-    np.testing.assert_allclose(np.asarray(out.sigma), np.asarray(ref.sigma),
-                               atol=1e-6)
-    # u/v are O(40) here: rtol pins the drift at ulp level (measured
-    # max_rel ~1e-6 from FMA-contraction differences)
-    np.testing.assert_allclose(np.asarray(out.u), np.asarray(ref.u),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(float(out.t), float(ref.t), rtol=1e-6)
-    np.testing.assert_allclose(float(out.tau), float(ref.tau), rtol=1e-6)
-
-
 def test_sw_engine_validation():
-    import pytest
-
-    cfg = sw.ShallowWaterConfig(nx=100, ny=64, engine="pallas")
-    with pytest.raises(ValueError):
-        sw.resolve_engine(cfg)   # nx not a lane multiple
-    assert sw.resolve_engine(sw.ShallowWaterConfig(nx=100, ny=64)) == "xla"
-
-
-def test_burgers_resident_multistep_matches_xla():
-    """The whole-solve VMEM-resident K-step kernel
-    (kernels/burgers_resident_pallas.make_multistep_pallas) reproduces
-    the XLA path to f32 ulps — the per-step asinh codec, the global CFL
-    max, the clock carry, and a non-multiple remainder included."""
-    from fluidsims_tpu.kernels.burgers_resident_pallas import run_multistep
-
-    cfg = bg.BurgersConfig(nx=128, ny=96, dtau=1e-2)
-    s = bg.init(cfg)
-    ref = s
-    for _ in range(11):
-        ref = bg.step(cfg, ref)
-    out = run_multistep(cfg, s, 11, k=4, interpret=True)
-    # rtol 1e-4: ulp-level FMA-contraction drift can flip a Rusanov
-    # upwinding select in isolated cells (measured worst case 2.6e-5)
-    np.testing.assert_allclose(np.asarray(out.phi_u), np.asarray(ref.phi_u),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(out.phi_v), np.asarray(ref.phi_v),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(float(out.t), float(ref.t), rtol=1e-6)
-    np.testing.assert_allclose(float(out.tau), float(ref.tau), rtol=1e-6)
+    """One plain XLA step: the resident-kernel options are gone, and
+    naming one fails loudly."""
+    with pytest.raises(TypeError):
+        sw.ShallowWaterConfig(engine="pallas")
+    with pytest.raises(TypeError):
+        sw.ShallowWaterConfig(block_k=8)
 
 
 def test_burgers_engine_validation():
-    import pytest
+    with pytest.raises(TypeError):
+        bg.BurgersConfig(engine="pallas")
+    with pytest.raises(TypeError):
+        bg.BurgersConfig(colehopf=True, block_k=8)
 
-    cfg = bg.BurgersConfig(nx=100, ny=64, engine="pallas")
-    with pytest.raises(ValueError):
-        bg.resolve_engine(cfg)   # nx not a lane multiple
-    cfg2 = bg.BurgersConfig(colehopf=True, engine="pallas")
-    with pytest.raises(ValueError):
-        bg.resolve_engine(cfg2)  # 1-D mode stays on the XLA path
-    assert bg.resolve_engine(bg.BurgersConfig()) == "xla"
+
+@pytest.mark.parametrize("engine", ["pallas", "hybrid", "xla"])
+def test_stam2d_engine_option_is_gone(engine):
+    """Stam 2-D keeps one engine, the exact gather; the banded and hybrid
+    engine names are refused rather than mapped to it."""
+    with pytest.raises(TypeError):
+        stam2d.Stam2DConfig(engine=engine)
 
 
 def test_sw_standing_wave_dispersion():

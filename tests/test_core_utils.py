@@ -98,8 +98,7 @@ def test_cli_checkpoint_resume_bitwise(tmp_path):
     full = tmp_path / "full.npz"
     mid = tmp_path / "mid.npz"
     end = tmp_path / "end.npz"
-    base = ["hypersonic2d", "--nx", "64", "--ny", "32", "--impl", "xla",
-            "--headless"]
+    base = ["hypersonic2d", "--nx", "64", "--ny", "32", "--headless"]
     main(base + ["--steps", "8", "--save-state", str(full)])
     main(base + ["--steps", "4", "--save-state", str(mid)])
     main(base + ["--steps", "4", "--load-state", str(mid),

@@ -136,8 +136,7 @@ def test_streamed_export_matches_batch_and_is_readable_mid_write(tmp_path):
     cfg = h3.default_config(16)
     batch = tmp_path / "batch.4spl"
     stream = tmp_path / "stream.4spl"
-    export_4spl(batch, cfg, frames=3, steps_per_frame=2, use_native=False,
-                impl="xla")
+    export_4spl(batch, cfg, frames=3, steps_per_frame=2, use_native=False)
 
     seen = []
 
@@ -148,7 +147,7 @@ def test_streamed_export_matches_batch_and_is_readable_mid_write(tmp_path):
         assert part.width == part.height == part.depth == 16
 
     export_4spl_streamed(stream, cfg, frames=3, steps_per_frame=2,
-                         impl="xla", on_frame=on_frame)
+                         on_frame=on_frame)
     assert seen == [0, 1, 2]
     assert batch.read_bytes() == stream.read_bytes()
 

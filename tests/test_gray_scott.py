@@ -90,44 +90,16 @@ def test_matches_loop_oracle_f64():
     np.testing.assert_allclose(np.asarray(s.v), orc.v, atol=1e-13)
 
 
-def test_multistep_pallas_matches_xla():
-    """The K-step temporally-blocked kernel (one HBM round trip per K
-    steps; kernels/gray_scott_pallas.make_multistep_pallas) reproduces
-    the XLA path to f32 FMA-contraction ulps — including a non-multiple
-    remainder and traced feed/kill overrides."""
-    from fluidsims_tpu.kernels.gray_scott_pallas import run_multistep
-
-    cfg = gs.GrayScottConfig(nx=128, ny=64, feed=0.0367, kill=0.0649)
-    s = gs.init(cfg)
-    ref = gs.run(cfg, s, 23)
-    out = run_multistep(cfg, s, 23, k=8, band=16, interpret=True)
-    np.testing.assert_allclose(np.asarray(out.u), np.asarray(ref.u),
-                               atol=5e-6)
-    np.testing.assert_allclose(np.asarray(out.v), np.asarray(ref.v),
-                               atol=5e-6)
-
-    # traced overrides ride in SMEM: same kernel, nudged parameters
-    ref2 = gs.run(cfg, s, 16, feed=0.04, kill=0.058)
-    out2 = run_multistep(cfg, s, 16, k=8, band=16, interpret=True,
-                         feed=0.04, kill=0.058)
-    np.testing.assert_allclose(np.asarray(out2.v), np.asarray(ref2.v),
-                               atol=5e-6)
-
-
-def test_multistep_single_superstep_exact_boundary():
-    """One k-step superstep vs k XLA steps at the exact valid-region
-    boundary (band == output rows, ghost creep reaches row k exactly):
-    any halo-geometry bug would leak O(1) garbage into the edge rows,
-    so a per-step-ulp tolerance pins the geometry."""
-    from fluidsims_tpu.kernels.gray_scott_pallas import make_multistep_pallas
-
-    cfg = gs.GrayScottConfig(nx=128, ny=64, feed=0.0367, kill=0.0649)
+def test_run_with_traced_feed_kill_matches_stepping():
+    """`run(..., feed=F, kill=k)` with traced overrides (the interactive
+    F/k nudges) equals stepping with the same parameters."""
+    cfg = gs.GrayScottConfig(nx=100, ny=64, feed=0.0367, kill=0.0649)
     s = gs.init(cfg)
     ref = s
-    for _ in range(2):
-        ref = gs.step(cfg, ref)
-    sup = make_multistep_pallas(cfg, k=2, band=16, interpret=True)
-    out = sup(s)
+    for _ in range(9):
+        ref = gs.step(cfg, ref, feed=0.04, kill=0.058)
+    out = jax.jit(lambda st, F, k: gs.run(cfg, st, 9, feed=F, kill=k))(
+        s, 0.04, 0.058)
     np.testing.assert_allclose(np.asarray(out.u), np.asarray(ref.u),
                                atol=1e-6)
     np.testing.assert_allclose(np.asarray(out.v), np.asarray(ref.v),
@@ -135,9 +107,12 @@ def test_multistep_single_superstep_exact_boundary():
 
 
 def test_gray_scott_engine_validation():
+    """The step is plain XLA on every platform: the K-step kernel's
+    `engine`/`block_k` options no longer exist, and passing one fails
+    loudly instead of being ignored."""
     import pytest
 
-    cfg = gs.GrayScottConfig(nx=100, ny=64, engine="pallas")
-    with pytest.raises(ValueError):
-        gs.resolve_engine(cfg)   # nx not a lane multiple
-    assert gs.resolve_engine(gs.GrayScottConfig(nx=100, ny=64)) == "xla"
+    with pytest.raises(TypeError):
+        gs.GrayScottConfig(engine="pallas")
+    with pytest.raises(TypeError):
+        gs.GrayScottConfig(block_k=16)

@@ -4,8 +4,7 @@ The reference's physics-correctness gate is the baseline snapshot regression
 (tau_hypersonic_cuda_tests.cu:143-176,494-559).  Here the oracle is an
 independent loop-structured float64 NumPy transcription of the same
 algorithm (tests/oracles/hypersonic2d_oracle.py); the JAX solver must match
-it to round-off at float64 and to float32 tolerance at f32 (BASELINE.json
-mandate).
+it to round-off at float64 and to float32 tolerance at f32.
 """
 
 

@@ -92,7 +92,7 @@ def test_cli_interactive_smoke(monkeypatch, capsys):
     assert "[o]obstacle" in out
 
     main(["hypersonic2d", "--nx", "64", "--ny", "32", "--steps", "2",
-          "--stride", "1", "--interactive", "--impl", "xla"])
+          "--stride", "1", "--interactive"])
     out = capsys.readouterr().out
     assert "[m]view" in out
 

@@ -74,28 +74,3 @@ def test_hypersonic2d_mesh2d_matches_dense(py, px):
         scale = np.maximum(np.abs(ga), 1.0)
         assert (np.abs(fa - ga) / scale).max() < 1e-5, f"{name} {py}x{px}"
     np.testing.assert_allclose(float(out.t), float(dense.t), rtol=1e-10)
-
-
-@pytest.mark.parametrize("n_dev", [2, 4])
-def test_hypersonic2d_sharded_pallas_core(n_dev):
-    """Multi-chip x fused-kernel composition: the sharded runner with the
-    Pallas core (interpret mode on the CPU mesh) matches the dense run."""
-    if len(jax.devices()) < n_dev:
-        pytest.skip("not enough devices")
-    ny, nx = 32, 64
-    cfg = h2.Hypersonic2DConfig(
-        nx=nx, ny=ny, geom_x0=nx / 8.0, geom_cy=ny / 2.0,
-        geom_Rb=ny / 12.0, geom_Rn=ny / 24.0,
-    )
-    s = h2.init(cfg)
-    dense = jax.jit(lambda st: h2.run(cfg, st, N_STEPS))(s)
-
-    mesh = make_mesh_1d(n_dev)
-    run = sh.make_sharded_run(cfg, mesh, N_STEPS, impl="pallas",
-                              interpret=True)
-    out = run(sh.shard_state(s, mesh))
-    for f, g, name in zip(out.U, dense.U, ("rho", "mx", "my", "E")):
-        fa, ga = np.asarray(f), np.asarray(g)
-        scale = np.maximum(np.abs(ga), 1.0)
-        assert (np.abs(fa - ga) / scale).max() < 1e-5, name
-    np.testing.assert_allclose(float(out.t), float(dense.t), rtol=1e-5)

@@ -40,22 +40,3 @@ def test_sharded3d_rejects_bad_split():
         sh3.make_sharded_run(h3.default_config(18), mesh, 1)
     with pytest.raises(ValueError):  # slab thinner than 2*halo
         sh3.make_sharded_run(h3.default_config(16), mesh, 1)
-
-
-def test_sharded3d_pallas_core_matches_dense():
-    """Multi-chip x fused-kernel composition for the 3-D solver: the z-slab
-    runner with the Pallas core (interpret mode) matches the dense run."""
-    if len(jax.devices()) < 2:
-        pytest.skip("not enough devices")
-    cfg = h3.default_config(16)
-    dense_out = jax.jit(lambda s: h3.run(cfg, s, 3))(h3.init(cfg))
-
-    mesh = make_mesh_1d(2, axis="z")
-    state = sh3.shard_state(h3.init(cfg), mesh)
-    run = sh3.make_sharded_run(cfg, mesh, 3, impl="pallas", interpret=True)
-    out = run(state)
-    for name in ("xi", "phix", "lam", "zet"):
-        a = np.asarray(getattr(out, name))
-        b = np.asarray(getattr(dense_out, name))
-        assert np.abs(a - b).max() < 1e-5, name
-    np.testing.assert_allclose(float(out.t), float(dense_out.t), rtol=1e-6)

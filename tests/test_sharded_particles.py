@@ -95,47 +95,42 @@ def test_sharded_mpm_matches_single_chip():
 
 
 def test_sharded_sph_matches_single_chip():
-    """Cell-block-sharded SPH: every output block is computed by exactly
-    one program in both the single-chip and 8-device runs (disjoint-band
-    psum = all-gather), so trajectories agree to within compiler FMA
-    contraction of the surrounding glue — observed as at most 1 ulp on a
-    rain-spawn position when the two graphs fuse it differently."""
-    from fluidsims_tpu.kernels import sph_pallas as sp
+    """Cell-sharded SPH: every output column is computed by exactly one
+    device with the same expressions as the one-device run; XLA may sum
+    each column's pair terms in another order at another slab width, so
+    the 8-device run agrees with the one-device run, and both with the
+    cell-dense single-chip step, to f32 summation order (velocities are
+    O(1): a few ulps per pair sum over 3 steps stays under 1e-5)."""
     from fluidsims_tpu.parallel import sph_sharded as ssh
     from fluidsims_tpu.solvers import sph
 
-    # n=16384 -> 32x32 cells = 8 blocks of 128 -> one block per device
     cfg = sph.SPHConfig(n=16384, rain=True, dtau=1e-2)
-    mesh = make_mesh_1d(8, axis="c")
     s0 = sph.init(cfg)
 
-    out = ssh.make_sharded_run(cfg, mesh, 3, interpret=True)(
-        ssh.shard_state(s0, mesh))
+    def sharded(n_dev):
+        mesh = make_mesh_1d(n_dev, axis="c")
+        return ssh.make_sharded_run(cfg, mesh, 3)(ssh.shard_state(s0, mesh))
 
-    step_p = sp.make_step_pallas(cfg, interpret=True)
-    ref = s0
-    for _ in range(3):
-        ref = step_p(ref)
-
-    np.testing.assert_allclose(np.asarray(out.pos), np.asarray(ref.pos),
-                               atol=1e-6)
-    np.testing.assert_allclose(np.asarray(out.vel), np.asarray(ref.vel),
-                               atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(out.tau), np.asarray(ref.tau))
-    # the pair physics itself is identical: velocities match exactly
-    assert (np.asarray(out.vel) == np.asarray(ref.vel)).mean() > 0.9999
+    ref = jax.jit(lambda s: sph.run(cfg, s, 3))(s0)
+    out, one = sharded(8), sharded(1)
+    for got in (out, ref):
+        np.testing.assert_allclose(np.asarray(got.pos), np.asarray(one.pos),
+                                   atol=1e-6)
+        np.testing.assert_allclose(np.asarray(got.vel), np.asarray(one.vel),
+                                   atol=1e-5)
+        np.testing.assert_allclose(np.asarray(got.tau), np.asarray(one.tau),
+                                   rtol=1e-6)
 
 
 def test_spatial_sph_matches_single_chip():
     """Spatially-sharded SPH (parallel/sph_spatial.py): distributed
     binning + x-slab ownership + ppermute halo bands + particle
-    migration must reproduce the single-chip pallas engine (compared by
-    particle id; in-cell summation order differs, so short-horizon f32
-    tolerance)."""
+    migration must reproduce the replicated-state runner on one device
+    (compared by particle id; in-cell summation order differs, so
+    short-horizon f32 tolerance)."""
     import numpy as np
 
-    from fluidsims_tpu.core.stepper import scan_steps
-    from fluidsims_tpu.kernels import sph_pallas as sp
+    from fluidsims_tpu.parallel import sph_sharded as ssh
     from fluidsims_tpu.parallel import sph_spatial as ssp
     from fluidsims_tpu.solvers import sph
 
@@ -147,8 +142,8 @@ def test_spatial_sph_matches_single_chip():
     assert int(out.lost) == 0
     pos, vel = ssp.gather_state(out, cfg.n)
     assert not np.isnan(pos).any()
-    ref = jax.jit(lambda s: scan_steps(
-        sp.make_step_pallas(cfg, interpret=True), s, 5))(s0)
+    one = make_mesh_1d(1, axis="c")
+    ref = ssh.make_sharded_run(cfg, one, 5)(ssh.shard_state(s0, one))
     np.testing.assert_allclose(pos, np.asarray(ref.pos), rtol=0, atol=1e-5)
     np.testing.assert_allclose(float(out.t), float(ref.t), rtol=1e-6)
 

@@ -6,6 +6,7 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from fluidsims_tpu.ops import cell_dense as cd
 from fluidsims_tpu.solvers import sph
@@ -122,33 +123,24 @@ def test_xsph_smooths_velocity():
     assert float(jnp.var(v2)) < float(jnp.var(v))
 
 
-def test_split_stepper_matches_step():
-    """The two-phase TPU stepper must be identical to the single-jit step."""
-    cfg = cfg_small(512, rain=True, dtau=1e-2)
-    st = sph.init(cfg)
-    a, b = st, st
-    frame = sph.make_split_stepper(cfg)
-    for _ in range(5):
-        a = frame(a)
-        b = sph.step(cfg, b)
-    np.testing.assert_allclose(np.asarray(a.pos), np.asarray(b.pos),
-                               rtol=1e-6, atol=1e-7)
-    np.testing.assert_allclose(float(a.tau), float(b.tau), rtol=1e-6)
+def _pair_path_run(cfg, st, n_steps):
+    """The flattened-cell pair path (parallel/sph_pairs.py) on a one-device
+    mesh: the code every cell-sharded runner executes per device."""
+    from fluidsims_tpu.parallel import sph_sharded as ssh
+    from fluidsims_tpu.parallel.mesh import make_mesh_1d
+
+    mesh = make_mesh_1d(1, axis="c")
+    return ssh.make_sharded_run(cfg, mesh, n_steps)(ssh.shard_state(st, mesh))
 
 
-def test_pallas_engine_matches_xla():
-    """The fused Pallas engine (kernels/sph_pallas.py, interpreted off-TPU)
-    must track the XLA cell-dense path to f32 summation-order tolerance,
-    including the rain emitter and tau bookkeeping."""
-    from fluidsims_tpu.kernels import sph_pallas as sp
-
+def test_pair_path_matches_cell_dense_step():
+    """The flattened-cell pair passes must track the cell-dense step to
+    f32 summation-order tolerance, including the rain emitter and tau
+    bookkeeping."""
     cfg = sph.SPHConfig(n=1024, rain=True, seed=7, dtau=1e-2)
     st = sph.init(cfg)
-    step_p = sp.make_step_pallas(cfg, interpret=True)
-    a, b = st, st
-    for _ in range(5):
-        a = step_p(a)
-        b = sph._step_xla(cfg, b)
+    a = _pair_path_run(cfg, st, 5)
+    b = jax.jit(lambda s: sph.run(cfg, s, 5))(st)
     np.testing.assert_allclose(np.asarray(a.pos), np.asarray(b.pos),
                                atol=2e-6)
     np.testing.assert_allclose(np.asarray(a.vel), np.asarray(b.vel),
@@ -156,35 +148,29 @@ def test_pallas_engine_matches_xla():
     np.testing.assert_allclose(float(a.tau), float(b.tau), rtol=1e-6)
 
 
-def test_pallas_engine_overflow_fallback_matches_xla():
+def test_pair_path_overflow_fallback_matches_cell_dense():
     """Particles dropped by a deliberately tiny bin capacity must follow
-    the same zero-pair-force integrate as the XLA path."""
-    from fluidsims_tpu.kernels import sph_pallas as sp
-
+    the same zero-pair-force integrate as the cell-dense step."""
     cfg = sph.SPHConfig(n=512, rain=False, seed=3, cell_capacity=8)
     st = sph.init(cfg)
     assert int(sph.overflow_count(cfg, st)) > 0  # capacity really overflows
-    a = sp.make_step_pallas(cfg, interpret=True)(st)
-    b = sph._step_xla(cfg, st)
+    a = _pair_path_run(cfg, st, 1)
+    b = sph.step(cfg, st)
     np.testing.assert_allclose(np.asarray(a.pos), np.asarray(b.pos),
                                atol=2e-6)
 
 
 def test_resolve_engine():
-    """Engine gating: f64/XSPH/ragged grids fall back to XLA; explicit
-    pallas with an ineligible config raises."""
-    import pytest
+    """Two engines remain, cell-dense ('xla', the default) and all-pairs
+    ('exact'); the fused-kernel and auto choices are refused at
+    construction."""
+    from fluidsims_tpu.core.config import ConfigError
 
-    assert sph.resolve_engine(sph.SPHConfig(n=1024, engine="xla")) == "xla"
-    assert sph.resolve_engine(
-        sph.SPHConfig(n=1024, dtype="float64")) == "xla"
-    assert sph.resolve_engine(
-        sph.SPHConfig(n=1024, use_xsph=True)) == "xla"
-    assert sph.resolve_engine(
-        sph.SPHConfig(n=1024, engine="pallas")) == "pallas"
-    with pytest.raises(ValueError):
-        sph.resolve_engine(
-            sph.SPHConfig(n=1024, engine="pallas", dtype="float64"))
+    assert sph.SPHConfig(n=1024).engine == "xla"
+    assert sph.SPHConfig(n=1024, engine="exact").engine == "exact"
+    for engine in ("pallas", "auto"):
+        with pytest.raises(ConfigError):
+            sph.SPHConfig(n=1024, engine=engine)
 
 
 def test_full_step_matches_allpairs_oracle_f64():
@@ -209,21 +195,6 @@ def test_full_step_matches_allpairs_oracle_f64():
     assert np.abs(np.asarray(s.vel) - orc.vel).max() < 1e-13
     np.testing.assert_allclose(float(s.t), orc.t, rtol=1e-12)
     np.testing.assert_allclose(float(s.tau), orc.tau, rtol=1e-12)
-
-
-def test_rank_pallas_matches_bin_rank():
-    """MXU prefix-counting rank kernel (ops/rank_pallas.py, kept as a
-    documented negative result) is bit-identical to bin_rank's ranks."""
-    from fluidsims_tpu.ops import cell_dense as cd
-    from fluidsims_tpu.ops.rank_pallas import make_rank_kernel
-
-    rng = np.random.default_rng(3)
-    n, M = 5000, 1024
-    cid = jnp.asarray(rng.integers(0, M, n).astype(np.int32))
-    got = np.asarray(make_rank_kernel(n, M, interpret=True)(cid))
-    grid = cd.DenseGrid(Gx=32, Gy=32, cell=1.0, K=1 << 20)
-    rank, ok, _ = cd.bin_rank(grid, jnp.zeros((n, 2), jnp.float32), cid=cid)
-    np.testing.assert_array_equal(got, np.asarray(rank))
 
 
 def test_default_eos_compresses_to_hydrostatic_equilibrium():
@@ -283,8 +254,8 @@ def test_exact_engine_agrees_with_dense_at_low_occupancy():
 
 def test_dropped_pair_error_gate():
     """Pin the SHAPE of the fast path's dropped-pair trade at small scale
-    (the full-scale numbers live in BASELINE.md "SPH dropped-pair error",
-    measured by tools/sph_error_study.py): once the default EOS compresses
+    (the full-scale study is tools/sph_error_study.py; its GPU numbers
+    are not measured yet): once the default EOS compresses
     cells past capacity K (see the CAVEAT in solvers/sph.py), the
     instantaneous density field diverges from engine='exact' by tens of
     percent, while the horizontally-averaged hydrostatic profile rho(y) —

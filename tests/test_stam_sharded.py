@@ -1,6 +1,6 @@
 """Multi-chip equivalence for the Stam solvers (x-slab 2-D, z-slab 3-D).
 
-The sharded steps must be BITWISE equal to the single-chip XLA engines
+The sharded steps must be BITWISE equal to the single-chip steps
 on 2/4/8 virtual devices whenever the advection halo is not exceeded
 (identical per-cell expression trees; the zero/reflective ghost rings
 are realized exactly at true domain edges only)."""
@@ -74,7 +74,7 @@ def test_stam2d_sharded_operators_bitwise(n_dev):
 
     from fluidsims_tpu.parallel import stam2d_sharded as sh
 
-    cfg = stam2d.Stam2DConfig(n=32, engine="xla", dt=_CALM_DT)
+    cfg = stam2d.Stam2DConfig(n=32, dt=_CALM_DT)
     s = stam2d.init(cfg)
     mesh = make_mesh_1d(n_dev)
     n_loc = cfg.n // n_dev
@@ -131,12 +131,12 @@ def test_stam2d_sharded_operators_bitwise(n_dev):
 
 @pytest.mark.parametrize("n_dev", [2, 4, 8])
 def test_stam2d_sharded_step_matches(n_dev):
-    """Full 3-frame sharded run vs the single-chip XLA engine.  Tolerance
+    """Full 3-frame sharded run vs the single-chip step.  Tolerance
     (not bitwise) because XLA FMA-contracts differently across the two
     program structures — see the operator-level bitwise gates above."""
     from fluidsims_tpu.parallel import stam2d_sharded as sh
 
-    cfg = stam2d.Stam2DConfig(n=32, engine="xla", dt=_CALM_DT)
+    cfg = stam2d.Stam2DConfig(n=32, dt=_CALM_DT)
     s = stam2d.init(cfg)
     ref = s
     for _ in range(3):
@@ -157,10 +157,10 @@ def test_stam2d_sharded_step_matches(n_dev):
 
 def test_stam2d_sharded_counts_halo_overflow():
     """A violent flow whose backtrace exceeds the slab halo must be
-    counted in state.ovf (the banded-engine contract, not silent)."""
+    counted in state.ovf (never silent)."""
     from fluidsims_tpu.parallel import stam2d_sharded as sh
 
-    cfg = stam2d.Stam2DConfig(n=32, engine="xla")
+    cfg = stam2d.Stam2DConfig(n=32)
     s = stam2d.init(cfg)
     s = s._replace(u=jnp.ones_like(s.u) * 50.0)
     mesh = make_mesh_1d(4)
@@ -258,15 +258,15 @@ def test_stam3d_sharded_operators_bitwise(n_dev):
 
 @pytest.mark.parametrize("n_dev", [2, 4, 8])
 def test_stam3d_sharded_step_matches(n_dev):
-    """Full 3-frame sharded run vs the single-chip XLA engine (tolerance:
+    """Full 3-frame sharded run vs the single-chip step (tolerance:
     FMA contraction varies with fusion boundaries, as for 2-D)."""
     from fluidsims_tpu.parallel import stam3d_sharded as sh
 
-    cfg = stam3d.Stam3DConfig(n=16, advect_k=2, engine="xla")
+    cfg = stam3d.Stam3DConfig(n=16, advect_k=2)
     s = stam3d.init(cfg)
     ref = s
     for _ in range(3):
-        ref = stam3d._step_xla(cfg, ref)
+        ref = stam3d.step(cfg, ref)
 
     mesh = make_mesh_1d(n_dev)
     run = sh.make_sharded_run(cfg, mesh, 3, halo_k=4 if n_dev <= 4 else 2)

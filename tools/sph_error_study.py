@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Quantify the SPH fast path's dropped-pair error at the reference defaults.
 
-The cell-dense engines (pallas/xla) drop pair interactions beyond K
+The cell-dense engine (xla) drops pair interactions beyond K
 particles per cell; the reference's linked lists never drop
 (tau_sph.cu:165-176).  At the reference's own defaults (c0=1, gamma=1,
 g=9.81 — NOT weakly compressible, see solvers/sph.py CAVEAT) the settled
@@ -29,7 +29,7 @@ level means the fast path is statistically as good as an
 infinitesimally-perturbed exact run.
 
 Writes SPH_ERROR.json at the repo root and prints one JSON line per
-checkpoint.  Run on the TPU; --n/--steps shrink it for CPU smoke use.
+checkpoint.  Run on the GPU; --n/--steps shrink it for CPU smoke use.
 """
 
 from __future__ import annotations
@@ -59,22 +59,16 @@ def main():
     ap.add_argument("--n", type=int, default=1 << 16)
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--every", type=int, default=100)
-    ap.add_argument("--engine", default="auto",
+    ap.add_argument("--engine", default="xla",
                     help="fast engine to compare against exact")
     ap.add_argument("--out", default=os.path.join(ROOT, "SPH_ERROR.json"))
     args = ap.parse_args()
 
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_bench_cache")
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_bench_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    except Exception:
-        pass
-    from fluidsims_tpu.core.platform import honor_env_platforms
+    from fluidsims_tpu.core.platform import enable_compile_cache
 
-    honor_env_platforms(jax)
+    enable_compile_cache(jax)
     import numpy as np
 
     from fluidsims_tpu.core.stepper import scan_steps
@@ -83,7 +77,7 @@ def main():
 
     cfg_fast = sph.SPHConfig(n=args.n, engine=args.engine)
     cfg_ex = sph.SPHConfig(n=args.n, engine="exact")
-    engine = sph.resolve_engine(cfg_fast)
+    engine = cfg_fast.engine
     grid = cfg_fast.grid()
     print(f"# engine={engine} K={grid.K} cells={grid.Gx}x{grid.Gy} "
           f"n={args.n}", file=sys.stderr)
